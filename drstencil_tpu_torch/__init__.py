@@ -1,0 +1,43 @@
+"""drstencil_tpu_torch — the PyTorch/CUDA port of drstencil_tpu.
+
+The same stencil-compiler framework, run on an NVIDIA Hopper GPU:
+
+- the ``.stc`` front-end and the analysis passes (temporal fusion,
+  data-reuse partition, halo analysis) live in :mod:`drstencil_tpu_torch.ir`,
+  pure Python copies of the JAX package's modules;
+- the streaming stencil kernel of ``drstencil_tpu.ops.stream`` becomes two
+  hand-written CUDA kernels (``csrc/stencil.cu``, bound in
+  :mod:`drstencil_tpu_torch.ops.kernels`): a temporally blocked tile in
+  shared memory that never writes a frame cell, one for 2D and one for 3D;
+- :mod:`drstencil_tpu_torch.ops.runner` runs the warmup, timed ping-pong
+  and golden-check protocol on torch tensors.
+
+Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``,
+where every kernel is replaced by its plain PyTorch version.
+"""
+
+__version__ = "0.1.0"
+
+from drstencil_tpu_torch.ir.spec import StencilSpec, parse_stc, load_stc
+from drstencil_tpu_torch.ir.passes import (
+    fuse,
+    order_of,
+    default_distance,
+    partition,
+    Partition,
+    analyze,
+    Analysis,
+)
+
+__all__ = [
+    "StencilSpec",
+    "parse_stc",
+    "load_stc",
+    "fuse",
+    "order_of",
+    "default_distance",
+    "partition",
+    "Partition",
+    "analyze",
+    "Analysis",
+]

@@ -1,0 +1,232 @@
+// Hand-written Hopper stencil kernels of drstencil_tpu_torch (sm_90a).
+//
+// Replaces the TPU kernel drstencil_tpu/ops/stream.py:568-803 (the Pallas
+// `kernel` closure of build_stream_kernel, called at stream.py:858) in all
+// of its main-path modes: K1 single fused level, K2 scratch trapezoid, K3
+// value-fused trapezoid, K4 deep trapezoid and K7 block-hybrid levels.
+// stencil2d_levels_kernel takes 2D grids, stencil3d_levels_kernel 3D ones.
+//
+// What both compute: `levels` applications of one linear tap operator to
+// the interior [H, dim-H) of every axis, H = frame = levels * reach.  Every
+// cell within H of a face keeps dst's value (a frozen Dirichlet frame).
+// Intermediate levels are unbounded: out-of-domain source cells read as 0,
+// and whatever that feeds lands only on frame cells, which are never stored.
+//
+// Design: one CTA per output tile.  It loads its tile plus a halo of H into
+// shared memory (masked to 0 outside the domain), computes levels
+// 1..levels-1 in shared memory over regions that shrink by `reach` per
+// level, ping-ponging two buffers, then computes the last level and stores
+// only the cells inside [H, dim-H).  None of the TPU kernel's mechanics
+// survive: no tall layout, lane rolls, straddle carry, frame slabs or
+// j-frame read-modify-write — the frame falls out of never writing it.
+//
+// Bound: per launch the function reads src once and writes dst once,
+// 2 * 4 * cells bytes over HBM (3.35 TB/s on H100 SXM), and does
+// 2 * taps * levels * cells flops on fp32 CUDA cores (67 TFLOP/s).  The
+// tuned winners' tables (<= 27 taps, <= 6 levels) sit near the bytes side
+// of that line.  This first kernel re-reads shared memory once per tap and
+// recomputes the halo of every tile at every level; a streamed revolving
+// window along axis 0 and TMA loads are later work.
+//
+// Interface: plain C, loaded with ctypes.  Each entry checks its arguments,
+// launches on the given stream and returns cudaGetLastError() (0 = success).
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+#define MAX_TAPS 256
+
+// Tap table passed by value as a kernel parameter (constant bank): linear
+// offsets into the shared-memory tile and fp32 coefficients, in the sorted
+// order of ops/stream.py so that sums run in the plain version's order.
+struct TapTable {
+  int n;
+  int off[MAX_TAPS];
+  float coef[MAX_TAPS];
+};
+
+__device__ __forceinline__ float apply_taps(const float* __restrict__ in,
+                                            int at, const TapTable& t) {
+  float acc = 0.0f;
+  for (int k = 0; k < t.n; ++k) acc = fmaf(t.coef[k], in[at + t.off[k]], acc);
+  return acc;
+}
+
+__global__ void __launch_bounds__(256)
+stencil2d_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                        int M, int N, int levels, int reach, int H,
+                        int TY, int TX, const __grid_constant__ TapTable taps) {
+  extern __shared__ float smem[];
+  const int EY = TY + 2 * H, EX = TX + 2 * H;
+  float* const buf0 = smem;
+  float* const buf1 = smem + EY * EX;
+  // global coordinates of the tile's local (0, 0)
+  const int y0 = (int)blockIdx.y * TY - H;
+  const int x0 = (int)blockIdx.x * TX - H;
+
+  for (int ly = threadIdx.y; ly < EY; ly += blockDim.y) {
+    const int gy = y0 + ly;
+    const bool row_in = gy >= 0 && gy < M;
+    for (int lx = threadIdx.x; lx < EX; lx += blockDim.x) {
+      const int gx = x0 + lx;
+      buf0[ly * EX + lx] = (row_in && gx >= 0 && gx < N)
+                                  ? src[(size_t)gy * N + gx] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  // intermediate level t covers local [t*reach, E - t*reach) on each axis
+  for (int t = 1; t < levels; ++t) {
+    const float* in = (t & 1) ? buf0 : buf1;
+    float* out = (t & 1) ? buf1 : buf0;
+    const int lo = t * reach;
+    for (int ly = lo + threadIdx.y; ly < EY - lo; ly += blockDim.y)
+      for (int lx = lo + threadIdx.x; lx < EX - lo; lx += blockDim.x)
+        out[ly * EX + lx] = apply_taps(in, ly * EX + lx, taps);
+    __syncthreads();
+  }
+
+  // last level: the output tile, stored only inside [H, dim-H)
+  const float* in = (levels & 1) ? buf0 : buf1;
+  for (int ly = H + threadIdx.y; ly < H + TY; ly += blockDim.y) {
+    const int gy = y0 + ly;
+    if (gy < H || gy >= M - H) continue;
+    for (int lx = H + threadIdx.x; lx < H + TX; lx += blockDim.x) {
+      const int gx = x0 + lx;
+      if (gx < H || gx >= N - H) continue;
+      dst[(size_t)gy * N + gx] = apply_taps(in, ly * EX + lx, taps);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+stencil3d_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                        int D, int M, int N, int levels, int reach, int H,
+                        int TZ, int TY, int TX,
+                        const __grid_constant__ TapTable taps) {
+  extern __shared__ float smem[];
+  const int EZ = TZ + 2 * H, EY = TY + 2 * H, EX = TX + 2 * H;
+  const int plane = EY * EX;
+  float* const buf0 = smem;
+  float* const buf1 = smem + EZ * plane;
+  const int z0 = (int)blockIdx.z * TZ - H;
+  const int y0 = (int)blockIdx.y * TY - H;
+  const int x0 = (int)blockIdx.x * TX - H;
+
+  // rows of the tile are (z, y) pairs; threadIdx.x walks x within a row
+  for (int row = threadIdx.y; row < EZ * EY; row += blockDim.y) {
+    const int lz = row / EY, ly = row - lz * EY;
+    const int gz = z0 + lz, gy = y0 + ly;
+    const bool row_in = gz >= 0 && gz < D && gy >= 0 && gy < M;
+    const float* grow = row_in ? src + ((size_t)gz * M + gy) * N : src;
+    float* srow = buf0 + lz * plane + ly * EX;
+    for (int lx = threadIdx.x; lx < EX; lx += blockDim.x) {
+      const int gx = x0 + lx;
+      srow[lx] = (row_in && gx >= 0 && gx < N) ? grow[gx] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  for (int t = 1; t < levels; ++t) {
+    const float* in = (t & 1) ? buf0 : buf1;
+    float* out = (t & 1) ? buf1 : buf0;
+    const int lo = t * reach;
+    const int ny = EY - 2 * lo, nrows = (EZ - 2 * lo) * ny;
+    for (int row = threadIdx.y; row < nrows; row += blockDim.y) {
+      const int lz = lo + row / ny, ly = lo + row % ny;
+      const int at = lz * plane + ly * EX;
+      for (int lx = lo + threadIdx.x; lx < EX - lo; lx += blockDim.x)
+        out[at + lx] = apply_taps(in, at + lx, taps);
+    }
+    __syncthreads();
+  }
+
+  const float* in = (levels & 1) ? buf0 : buf1;
+  for (int row = threadIdx.y; row < TZ * TY; row += blockDim.y) {
+    const int lz = H + row / TY, ly = H + row % TY;
+    const int gz = z0 + lz, gy = y0 + ly;
+    if (gz < H || gz >= D - H || gy < H || gy >= M - H) continue;
+    const int at = lz * plane + ly * EX;
+    float* drow = dst + ((size_t)gz * M + gy) * N;
+    for (int lx = H + threadIdx.x; lx < H + TX; lx += blockDim.x) {
+      const int gx = x0 + lx;
+      if (gx < H || gx >= N - H) continue;
+      drow[gx] = apply_taps(in, at + lx, taps);
+    }
+  }
+}
+
+// Fill the by-value tap table: offsets (ntaps x ndim, row-major, axis 0
+// first) become linear offsets into a tile of extents ext[0..ndim).
+static bool fill_table(TapTable* t, const int* offsets, const float* coefs,
+                       int ntaps, int ndim, const int* ext) {
+  if (ntaps < 1 || ntaps > MAX_TAPS) return false;
+  t->n = ntaps;
+  for (int k = 0; k < ntaps; ++k) {
+    int lin = 0;
+    for (int a = 0; a < ndim; ++a) lin = lin * ext[a] + offsets[k * ndim + a];
+    t->off[k] = lin;
+    t->coef[k] = coefs[k];
+  }
+  return true;
+}
+
+static bool valid_plan(int levels, int reach, int H) {
+  return levels >= 1 && reach >= 0 && H == levels * reach;
+}
+
+extern "C" {
+
+int stencil_max_taps(void) { return MAX_TAPS; }
+
+const char* stencil_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+int stencil2d_levels(const float* src, float* dst, int M, int N,
+                     const int* offsets, const float* coefs, int ntaps,
+                     int levels, int reach, int H, int TY, int TX,
+                     void* stream) {
+  if (!valid_plan(levels, reach, H) || TY < 1 || TX < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ext[2] = {TY + 2 * H, TX + 2 * H};
+  TapTable t = {};
+  if (!fill_table(&t, offsets, coefs, ntaps, 2, ext))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(levels > 1 ? 2 : 1) * ext[0] * ext[1] * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      stencil2d_levels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(32, 8);
+  const dim3 grid((N + TX - 1) / TX, (M + TY - 1) / TY);
+  stencil2d_levels_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      src, dst, M, N, levels, reach, H, TY, TX, t);
+  return (int)cudaGetLastError();
+}
+
+int stencil3d_levels(const float* src, float* dst, int D, int M, int N,
+                     const int* offsets, const float* coefs, int ntaps,
+                     int levels, int reach, int H, int TZ, int TY, int TX,
+                     void* stream) {
+  if (!valid_plan(levels, reach, H) || TZ < 1 || TY < 1 || TX < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ext[3] = {TZ + 2 * H, TY + 2 * H, TX + 2 * H};
+  TapTable t = {};
+  if (!fill_table(&t, offsets, coefs, ntaps, 3, ext))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(levels > 1 ? 2 : 1) * ext[0] * ext[1] *
+                      ext[2] * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      stencil3d_levels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(32, 8);
+  const dim3 grid((N + TX - 1) / TX, (M + TY - 1) / TY, (D + TZ - 1) / TZ);
+  stencil3d_levels_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      src, dst, D, M, N, levels, reach, H, TZ, TY, TX, t);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,90 @@
+"""Kernel configuration — a copy of ``drstencil_tpu.ops.config``.
+
+``KernelConfig`` keeps every field, ``from_dict`` and ``label()`` of the
+JAX package unchanged, so the entries of ``benchmarks/tuned.json`` load
+as they are and name the same configurations.  Most fields were tuned for
+the TPU's Mosaic pipeline; on Hopper they mean:
+
+- ``step``, ``distance``, ``merge_forward``: unchanged (analysis knobs);
+- ``trapezoid``, ``block``: unchanged — they pick the tap table and the
+  number of levels each launch applies (``ops/stream.level_plan``);
+- ``tm``, ``ch``: ignored — the Hopper kernels pick their own tile
+  (``ops/kernels.tile_shape``);
+- ``lane_mode``, ``jfix``, ``prefetch``: no-ops — lane rolls, the j-frame
+  restore and the Mosaic pipeline depth have no counterpart; the frozen
+  frame falls out of never writing it.  ``lane_mode`` still gates
+  ``vfuse`` as in the JAX package, so both reject the same configs;
+- ``vfuse``: the same kernel as the scratch trapezoid (levels chain
+  through shared memory either way);
+- ``factor=True``: raises ``NotImplementedError`` (the factored levels
+  come in a later slice);
+- ``dtype``: ``"float32"`` only in this slice;
+- ``interpret``: ignored — the CPU path is chosen by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class KernelConfig:
+    """Configuration for one stencil kernel (see the module docstring for
+    what each TPU-era field does on Hopper)."""
+
+    variant: str = "stream"
+    step: int = 1
+    distance: int = 0  # 0 = auto (fused extent >> 1)
+    merge_forward: int = 5
+    tm: Optional[int] = None
+    ch: Optional[int] = None
+    dtype: str = "float32"
+    lane_mode: Optional[str] = None
+    trapezoid: bool = False
+    factor: bool = False
+    vfuse: bool = False
+    block: int = 1
+    jfix: str = "outer"
+    prefetch: int = 2
+    interpret: bool = False
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "KernelConfig":
+        """Build from a (possibly legacy) dict, ignoring unknown keys —
+        ledgers/tuned.json may carry fields from older versions."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
+
+    def replace(self, **kw) -> "KernelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def replace_variant(self, variant: str) -> "KernelConfig":
+        return dataclasses.replace(self, variant=variant)
+
+    def label(self) -> str:
+        """Compact config name for logs, identical to the JAX package's
+        (e.g. 'stream_fu4_tm128_trap_vf_roll')."""
+        parts = [self.variant, f"fu{self.step}"]
+        if self.distance:
+            parts.append(f"d{self.distance}")
+        if self.tm is not None:
+            parts.append(f"tm{self.tm}")
+        if self.ch is not None:
+            parts.append(f"ch{self.ch}")
+        if self.trapezoid:
+            parts.append("trap" if self.block == 1 else f"trap_b{self.block}")
+        if self.vfuse:
+            parts.append("vf")
+        if self.factor:
+            parts.append("fac")
+        if self.lane_mode:
+            parts.append(self.lane_mode)
+        if self.prefetch != 2:
+            parts.append(f"pf{self.prefetch}")
+        if self.jfix != "outer":
+            parts.append("jfk")
+        if self.dtype != "float32":
+            parts.append(self.dtype)
+        return "_".join(parts)

@@ -1,0 +1,174 @@
+"""Host side of the streaming stencil kernel, ported to Hopper.
+
+The JAX package's ``build_stream_kernel`` (``drstencil_tpu/ops/stream.py``)
+builds one Pallas kernel whose modes all compute the same thing: ``L``
+levels of a linear tap operator on the interior ``[H, dim - H)``, with a
+frozen frame of width ``H = an.halo`` on every axis:
+
+- ``L = 1``: the coefficient-fused operator ``an.fused`` (K1);
+- ``L = step``: the base taps (trapezoids K2, K3 and K4);
+- ``L = step / block``: ``fuse(base, block)`` (block-hybrid K7).
+
+Here that becomes a level schedule (:func:`level_plan`) handed to one of
+two CUDA kernels (``ops/kernels.py``).  The TPU geometry — tall layout,
+padding, strips, frame slabs — has no counterpart; only its rejection
+rules and the config checks are kept, so that both packages accept and
+reject the same configurations.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from drstencil_tpu_torch.ir.passes import Analysis, fuse
+from drstencil_tpu_torch.ops import kernels
+from drstencil_tpu_torch.ops.config import KernelConfig
+from drstencil_tpu_torch.ops.kernels import LevelTaps
+
+# trapezoid depth the JAX package compiles as a fori_loop; kept for
+# vfuse's rejection rule and device_check's deep gold
+DEEP_LEVELS = 5
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA.  Asking for CUDA where there is none raises:
+    the CPU path is taken only when the caller passes ``device="cpu"``."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the plain "
+                "PyTorch versions of the kernels")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def tap_table(tap_map):
+    """Taps sorted by offset (``to_rowlane``'s order, kept N-D) as
+    (offsets (n, ndim) int32, coeffs (n,) float32)."""
+    items = sorted(tap_map.items())
+    offsets = np.array([off for off, _ in items], dtype=np.int32)
+    coeffs = np.array([c for _, c in items], dtype=np.float32)
+    return offsets, coeffs
+
+
+def check_geometry(an: Analysis) -> None:
+    """The JAX ``make_geometry`` rejections (stream.py:122-143): the frame
+    is the fused axis-0 order on every axis, so a stencil wider off-axis,
+    or reaching further backward on axis 0, would corrupt interior cells."""
+    h = an.halo
+    for a in range(1, len(an.spec.dims)):
+        ra = max(abs(off[a]) for off in an.fused)
+        if ra > h:
+            raise ValueError(
+                f"axis-{a} radius {ra} of the fused stencil exceeds its "
+                f"axis-0 order {h}; asymmetric stencils wider off-axis "
+                "are not supported by the streaming kernel"
+            )
+    neg0 = -min(off[0] for off in an.fused)
+    if neg0 > h:
+        raise ValueError(
+            f"axis-0 negative extent {neg0} of the fused stencil exceeds "
+            f"its axis-0 order {h}; asymmetric stencils reaching further "
+            "backward than forward are not supported by the streaming kernel"
+        )
+
+
+def n_levels(an: Analysis, cfg: KernelConfig) -> int:
+    """Trapezoid level count: step base applications, or step/block
+    applications of the block-step coefficient-fused operator."""
+    if not (cfg.trapezoid and an.step > 1):
+        return 1
+    blk = cfg.block or 1
+    if blk == 1:
+        return an.step
+    if an.step % blk or blk >= an.step:
+        raise ValueError(
+            f"block={blk} requires step % block == 0 and block < step "
+            f"(step={an.step}; block == step is plain coefficient fusion)"
+        )
+    return an.step // blk
+
+
+def is_deep(an: Analysis, cfg: KernelConfig) -> bool:
+    return (bool(cfg.trapezoid) and not cfg.factor
+            and n_levels(an, cfg) >= DEEP_LEVELS)
+
+
+def _lane_padded(an: Analysis, cfg: KernelConfig) -> bool:
+    """Whether the JAX kernel would pad lanes (``pc > 0``); only vfuse's
+    rejection rule reads it."""
+    n = an.spec.dims[-1]
+    return cfg.lane_mode == "slice" or (cfg.lane_mode is None and n >= 2048)
+
+
+def level_plan(an: Analysis, cfg: KernelConfig) -> LevelTaps:
+    """The level schedule of one application (stream.py:452-507): which
+    tap table, how many levels, and each level's reach ``H / L``."""
+    check_geometry(an)
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype {cfg.dtype!r}: this port runs float32 state only")
+    s_levels = n_levels(an, cfg)
+    if cfg.block > 1 and not (cfg.trapezoid and an.step > 1):
+        raise ValueError("block > 1 requires trapezoid with step > 1")
+    if cfg.block > 1 and cfg.factor:
+        raise ValueError("block > 1 is incompatible with factor mode")
+    if cfg.factor:
+        raise NotImplementedError(
+            "factor mode (factored V1/V2 levels) is not ported yet")
+    if cfg.vfuse:
+        if not (cfg.trapezoid and an.step > 1):
+            raise ValueError("vfuse requires trapezoid with step > 1")
+        if s_levels >= DEEP_LEVELS:
+            raise ValueError("vfuse requires levels < DEEP_LEVELS")
+        if _lane_padded(an, cfg):
+            raise ValueError(
+                "vfuse requires roll lane-mode (pc=0): slice-mode inners "
+                "are width N, but chained levels need width-wb inputs"
+            )
+    if s_levels == 1:
+        taps = an.fused
+    elif cfg.block > 1:
+        taps = fuse(an.spec.taps, cfg.block)
+    else:
+        taps = an.spec.taps
+    h = an.halo
+    reach = h // s_levels
+    assert reach * s_levels == h, "fused halo must be levels*level reach"
+    offsets, coeffs = tap_table(taps)
+    assert int(np.abs(offsets).max()) <= reach, "a tap exceeds its level reach"
+    if len(coeffs) > kernels.MAX_TAPS:
+        raise ValueError(
+            f"{len(coeffs)} taps per level exceed the kernels' table of "
+            f"{kernels.MAX_TAPS}; use trapezoid levels instead")
+    return LevelTaps(offsets=offsets, coeffs=coeffs, levels=s_levels,
+                     reach=reach, frame=h)
+
+
+def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None):
+    """Build ``f(src, dst)``: one application of the fused operator.
+
+    ``f`` writes the interior ``[H, dim - H)`` of ``dst`` in place from
+    ``src`` and leaves ``dst``'s frame untouched; it returns ``dst``.
+    Both are real-shaped contiguous float32 tensors on ``device``
+    (``None`` = CUDA; ``"cpu"`` runs the kernels' plain versions).
+    """
+    device = resolve_device(device)
+    plan = level_plan(an, cfg)
+    kernel = kernels.kernel_for(len(an.spec.dims))
+    dims = tuple(an.spec.dims)
+
+    def f(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+        if src.device != device or dst.device != device:
+            raise ValueError(f"tensors on {src.device}/{dst.device}, "
+                             f"kernel built for {device}")
+        if tuple(src.shape) != dims:
+            raise ValueError(f"grid {tuple(src.shape)} is not {dims}")
+        return kernel(src, dst, plan)
+
+    return f
