@@ -3,7 +3,8 @@
 The port imports nothing of ``drstencil_tpu``, so objects cross as plain
 fields and numpy arrays: a JAX ``StencilSpec`` as its fields, a
 ``KernelConfig`` as its dict, and ping-pong state as the JAX side's
-real-shaped arrays (already unpadded by its ``unpad_state``).
+real-shaped arrays (already unpadded by its ``unpad_state``).  A bfloat16
+state crosses through float32, which holds every bfloat16 value exactly.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from drstencil_tpu_torch.ir.spec import StencilSpec
 from drstencil_tpu_torch.ops.config import KernelConfig
-from drstencil_tpu_torch.ops.stream import resolve_device
+from drstencil_tpu_torch.ops.stream import resolve_device, state_dtype
 
 
 def spec_from_fields(name: str, dims, iterations: int, taps) -> StencilSpec:
@@ -25,17 +26,23 @@ def config_from_dict(d: dict) -> KernelConfig:
     return KernelConfig.from_dict(d)
 
 
-def state_from_numpy(a: np.ndarray, b: np.ndarray, device=None) -> dict:
-    """Ping-pong state ``{"a", "b"}`` as float32 tensors on ``device``
-    (``None`` = CUDA), copied from real-shaped numpy arrays."""
+def state_from_numpy(a: np.ndarray, b: np.ndarray, device=None,
+                     dtype: str = "float32") -> dict:
+    """Ping-pong state ``{"a", "b"}`` as tensors of ``dtype`` (a
+    ``KernelConfig.dtype`` name) on ``device`` (``None`` = CUDA), copied
+    from real-shaped numpy arrays.  A JAX bfloat16 array is passed as its
+    float32 upcast (``np.asarray(x, np.float32)``), which is exact, so the
+    port's state equals it bit for bit."""
     device = resolve_device(device)
-    return {
-        "a": torch.tensor(np.asarray(a, dtype=np.float32), device=device),
-        "b": torch.tensor(np.asarray(b, dtype=np.float32), device=device),
-    }
+    dt = state_dtype(dtype)
+    return {k: torch.tensor(np.asarray(x, dtype=np.float32)).to(device, dt)
+            for k, x in (("a", a), ("b", b))}
 
 
-def state_to_numpy(state: dict) -> tuple:
-    """(a, b) as numpy copies of the state's buffers."""
-    return tuple(state[k].detach().to("cpu", copy=True).numpy()
-                 for k in ("a", "b"))
+def state_to_numpy(state: dict, dtype=np.float32) -> tuple:
+    """(a, b) as numpy copies of the state's buffers, cast to the numpy
+    ``dtype``.  numpy has no bfloat16: the float32 default holds a bfloat16
+    state exactly, and the JAX side casts it back
+    (``jnp.asarray(x, jnp.bfloat16)``) bit for bit."""
+    return tuple(state[k].detach().to("cpu", torch.float32, copy=True)
+                 .numpy().astype(dtype, copy=False) for k in ("a", "b"))

@@ -5,6 +5,8 @@
 // of its main-path modes: K1 single fused level, K2 scratch trapezoid, K3
 // value-fused trapezoid, K4 deep trapezoid and K7 block-hybrid levels.
 // stencil2d_levels_kernel takes 2D grids, stencil3d_levels_kernel 3D ones.
+// Both are templates on the storage type: float (the fp32 builds) and
+// __nv_bfloat16 (the bf16 builds, the TPU kernel's dtype="bfloat16").
 //
 // What both compute: `levels` applications of one linear tap operator to
 // the interior [H, dim-H) of every axis, H = frame = levels * reach.  Every
@@ -20,8 +22,15 @@
 // survive: no tall layout, lane rolls, straddle carry, frame slabs or
 // j-frame read-modify-write — the frame falls out of never writing it.
 //
+// Storage and arithmetic: the TPU kernel loads bf16 state as fp32
+// (drstencil_tpu/ops/stream.py:604-617), keeps every level in fp32 scratch
+// (:866) and rounds once at the store (:652).  Here too: the load
+// converts to fp32 (__bfloat162float), shared memory and every level stay
+// fp32, and the last level rounds to nearest even once at the store
+// (__float2bfloat16_rn, as XLA's convert does).  The tap table stays fp32.
+//
 // Bound: per launch the function reads src once and writes dst once,
-// 2 * 4 * cells bytes over HBM (3.35 TB/s on H100 SXM), and does
+// 2 * item * cells bytes over HBM (3.35 TB/s on H100 SXM), and does
 // 2 * taps * levels * cells flops on fp32 CUDA cores (67 TFLOP/s).  The
 // tuned winners' tables (<= 27 taps, <= 6 levels) sit near the bytes side
 // of that line.  This first kernel re-reads shared memory once per tap and
@@ -31,6 +40,7 @@
 // Interface: plain C, loaded with ctypes.  Each entry checks its arguments,
 // launches on the given stream and returns cudaGetLastError() (0 = success).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -52,8 +62,18 @@ __device__ __forceinline__ float apply_taps(const float* __restrict__ in,
   return acc;
 }
 
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(256)
-stencil2d_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
+stencil2d_levels_kernel(const T* __restrict__ src, T* __restrict__ dst,
                         int M, int N, int levels, int reach, int H,
                         int TY, int TX, const __grid_constant__ TapTable taps) {
   extern __shared__ float smem[];
@@ -70,7 +90,7 @@ stencil2d_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
     for (int lx = threadIdx.x; lx < EX; lx += blockDim.x) {
       const int gx = x0 + lx;
       buf0[ly * EX + lx] = (row_in && gx >= 0 && gx < N)
-                                  ? src[(size_t)gy * N + gx] : 0.0f;
+                                  ? load_f32(src + (size_t)gy * N + gx) : 0.0f;
     }
   }
   __syncthreads();
@@ -94,13 +114,14 @@ stencil2d_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
     for (int lx = H + threadIdx.x; lx < H + TX; lx += blockDim.x) {
       const int gx = x0 + lx;
       if (gx < H || gx >= N - H) continue;
-      dst[(size_t)gy * N + gx] = apply_taps(in, ly * EX + lx, taps);
+      store_f32(dst + (size_t)gy * N + gx, apply_taps(in, ly * EX + lx, taps));
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-stencil3d_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
+stencil3d_levels_kernel(const T* __restrict__ src, T* __restrict__ dst,
                         int D, int M, int N, int levels, int reach, int H,
                         int TZ, int TY, int TX,
                         const __grid_constant__ TapTable taps) {
@@ -118,11 +139,11 @@ stencil3d_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
     const int lz = row / EY, ly = row - lz * EY;
     const int gz = z0 + lz, gy = y0 + ly;
     const bool row_in = gz >= 0 && gz < D && gy >= 0 && gy < M;
-    const float* grow = row_in ? src + ((size_t)gz * M + gy) * N : src;
+    const T* grow = row_in ? src + ((size_t)gz * M + gy) * N : src;
     float* srow = buf0 + lz * plane + ly * EX;
     for (int lx = threadIdx.x; lx < EX; lx += blockDim.x) {
       const int gx = x0 + lx;
-      srow[lx] = (row_in && gx >= 0 && gx < N) ? grow[gx] : 0.0f;
+      srow[lx] = (row_in && gx >= 0 && gx < N) ? load_f32(grow + gx) : 0.0f;
     }
   }
   __syncthreads();
@@ -147,11 +168,11 @@ stencil3d_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
     const int gz = z0 + lz, gy = y0 + ly;
     if (gz < H || gz >= D - H || gy < H || gy >= M - H) continue;
     const int at = lz * plane + ly * EX;
-    float* drow = dst + ((size_t)gz * M + gy) * N;
+    T* drow = dst + ((size_t)gz * M + gy) * N;
     for (int lx = H + threadIdx.x; lx < H + TX; lx += blockDim.x) {
       const int gx = x0 + lx;
       if (gx < H || gx >= N - H) continue;
-      drow[gx] = apply_taps(in, at + lx, taps);
+      store_f32(drow + gx, apply_taps(in, at + lx, taps));
     }
   }
 }
@@ -175,6 +196,54 @@ static bool valid_plan(int levels, int reach, int H) {
   return levels >= 1 && reach >= 0 && H == levels * reach;
 }
 
+template <typename T>
+static int launch2d(const T* src, T* dst, int M, int N, const int* offsets,
+                    const float* coefs, int ntaps, int levels, int reach,
+                    int H, int TY, int TX, void* stream) {
+  if (!valid_plan(levels, reach, H) || TY < 1 || TX < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ext[2] = {TY + 2 * H, TX + 2 * H};
+  TapTable t = {};
+  if (!fill_table(&t, offsets, coefs, ntaps, 2, ext))
+    return (int)cudaErrorInvalidValue;
+  // shared memory holds fp32 whatever T is: the load converts
+  const size_t smem =
+      (size_t)(levels > 1 ? 2 : 1) * ext[0] * ext[1] * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      stencil2d_levels_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(32, 8);
+  const dim3 grid((N + TX - 1) / TX, (M + TY - 1) / TY);
+  stencil2d_levels_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(
+      src, dst, M, N, levels, reach, H, TY, TX, t);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch3d(const T* src, T* dst, int D, int M, int N,
+                    const int* offsets, const float* coefs, int ntaps,
+                    int levels, int reach, int H, int TZ, int TY, int TX,
+                    void* stream) {
+  if (!valid_plan(levels, reach, H) || TZ < 1 || TY < 1 || TX < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ext[3] = {TZ + 2 * H, TY + 2 * H, TX + 2 * H};
+  TapTable t = {};
+  if (!fill_table(&t, offsets, coefs, ntaps, 3, ext))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(levels > 1 ? 2 : 1) * ext[0] * ext[1] *
+                      ext[2] * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      stencil3d_levels_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(32, 8);
+  const dim3 grid((N + TX - 1) / TX, (M + TY - 1) / TY, (D + TZ - 1) / TZ);
+  stencil3d_levels_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(
+      src, dst, D, M, N, levels, reach, H, TZ, TY, TX, t);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 int stencil_max_taps(void) { return MAX_TAPS; }
@@ -187,46 +256,33 @@ int stencil2d_levels(const float* src, float* dst, int M, int N,
                      const int* offsets, const float* coefs, int ntaps,
                      int levels, int reach, int H, int TY, int TX,
                      void* stream) {
-  if (!valid_plan(levels, reach, H) || TY < 1 || TX < 1)
-    return (int)cudaErrorInvalidValue;
-  const int ext[2] = {TY + 2 * H, TX + 2 * H};
-  TapTable t = {};
-  if (!fill_table(&t, offsets, coefs, ntaps, 2, ext))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(levels > 1 ? 2 : 1) * ext[0] * ext[1] * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      stencil2d_levels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(32, 8);
-  const dim3 grid((N + TX - 1) / TX, (M + TY - 1) / TY);
-  stencil2d_levels_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      src, dst, M, N, levels, reach, H, TY, TX, t);
-  return (int)cudaGetLastError();
+  return launch2d(src, dst, M, N, offsets, coefs, ntaps, levels, reach, H,
+                  TY, TX, stream);
+}
+
+int stencil2d_levels_bf16(const __nv_bfloat16* src, __nv_bfloat16* dst,
+                          int M, int N, const int* offsets,
+                          const float* coefs, int ntaps, int levels,
+                          int reach, int H, int TY, int TX, void* stream) {
+  return launch2d(src, dst, M, N, offsets, coefs, ntaps, levels, reach, H,
+                  TY, TX, stream);
 }
 
 int stencil3d_levels(const float* src, float* dst, int D, int M, int N,
                      const int* offsets, const float* coefs, int ntaps,
                      int levels, int reach, int H, int TZ, int TY, int TX,
                      void* stream) {
-  if (!valid_plan(levels, reach, H) || TZ < 1 || TY < 1 || TX < 1)
-    return (int)cudaErrorInvalidValue;
-  const int ext[3] = {TZ + 2 * H, TY + 2 * H, TX + 2 * H};
-  TapTable t = {};
-  if (!fill_table(&t, offsets, coefs, ntaps, 3, ext))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(levels > 1 ? 2 : 1) * ext[0] * ext[1] *
-                      ext[2] * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      stencil3d_levels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(32, 8);
-  const dim3 grid((N + TX - 1) / TX, (M + TY - 1) / TY, (D + TZ - 1) / TZ);
-  stencil3d_levels_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      src, dst, D, M, N, levels, reach, H, TZ, TY, TX, t);
-  return (int)cudaGetLastError();
+  return launch3d(src, dst, D, M, N, offsets, coefs, ntaps, levels, reach, H,
+                  TZ, TY, TX, stream);
+}
+
+int stencil3d_levels_bf16(const __nv_bfloat16* src, __nv_bfloat16* dst,
+                          int D, int M, int N, const int* offsets,
+                          const float* coefs, int ntaps, int levels,
+                          int reach, int H, int TZ, int TY, int TX,
+                          void* stream) {
+  return launch3d(src, dst, D, M, N, offsets, coefs, ntaps, levels, reach, H,
+                  TZ, TY, TX, stream);
 }
 
 }  // extern "C"

@@ -18,7 +18,10 @@ the TPU's Mosaic pipeline; on Hopper they mean:
   through shared memory either way);
 - ``factor=True``: raises ``NotImplementedError`` (the factored levels
   come in a later slice);
-- ``dtype``: ``"float32"`` only in this slice;
+- ``dtype``: the state's storage type, ``"float32"`` or ``"bfloat16"``.
+  Both run through the same kernels' fp32 or bf16 builds; either way every
+  level is computed in fp32 and rounded to the state's type once per
+  launch, as the JAX kernel does;
 - ``interpret``: ignored — the CPU path is chosen by the tensors' device.
 """
 

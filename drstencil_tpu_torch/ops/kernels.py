@@ -8,14 +8,18 @@ Two CUDA kernels (``csrc/stencil.cu``) replace the TPU streaming kernel
 
 Each applies ``levels`` levels of one tap table to the interior
 ``[frame, dim - frame)`` of ``dst``, reading ``src``, and never writes a
-frame cell.  The source note in ``stencil.cu`` gives the design and the
-bound.
+frame cell.  Each has two builds, on float32 and on bfloat16 state (C
+entries ``*_levels`` and ``*_levels_bf16``): the bf16 build loads as fp32,
+computes every level in fp32 and rounds once at the store, as the TPU
+kernel does with ``dtype="bfloat16"``.  The source note in ``stencil.cu``
+gives the design and the bound.
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
 repository root at first use, and loaded with ``ctypes`` through a plain C
 interface.  Each wrapper dispatches on the tensors' device: CPU tensors go
 to the plain PyTorch version beside it (``*_ref``), CUDA tensors launch the
-kernel or raise.  ``launches`` counts kernel launches only.
+kernel or raise.  On CUDA it dispatches on the tensors' dtype to the fp32
+or the bf16 build.  ``launches`` counts kernel launches (both builds) only.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ import torch.nn.functional as F
 MAX_TAPS = 256
 # Shared memory one block may use on Hopper: 227 KB.
 SMEM_LIMIT = 232448
+# Storage dtypes the kernels take, with the suffix of their C entry point.
+BUILDS = {torch.float32: "", torch.bfloat16: "_bf16"}
 # Output tile per CTA, (y, x) in 2D and (z, y, x) in 3D, before shrinking
 # to fit SMEM_LIMIT.
 TILE_2D = (32, 64)
@@ -75,7 +81,7 @@ def tile_shape(ndim: int, frame: int, levels: int) -> Tuple[int, ...]:
     haloed tile — two buffers of it when ``levels > 1`` — fits in shared
     memory."""
     tile = list(TILE_2D if ndim == 2 else TILE_3D)
-    nbuf = 2 if levels > 1 else 1
+    nbuf = n_buffers(levels)
     while smem_bytes(tile, frame, nbuf) > SMEM_LIMIT:
         axis = next((a for a, t in enumerate(tile) if t > 1), None)
         if axis is None:
@@ -85,7 +91,15 @@ def tile_shape(ndim: int, frame: int, levels: int) -> Tuple[int, ...]:
     return tuple(tile)
 
 
+def n_buffers(levels: int) -> int:
+    """Shared-memory tiles of one CTA: two to ping-pong levels, one for a
+    single level."""
+    return 2 if levels > 1 else 1
+
+
 def smem_bytes(tile, frame: int, nbuf: int) -> int:
+    """Shared memory of one CTA: ``nbuf`` haloed tiles of fp32, whatever
+    the storage dtype (the load converts to fp32)."""
     return nbuf * 4 * int(np.prod([t + 2 * frame for t in tile]))
 
 
@@ -130,13 +144,15 @@ class _Library:
         lib.stencil_max_taps.restype = i32
         lib.stencil_error_string.argtypes = [i32]
         lib.stencil_error_string.restype = ctypes.c_char_p
-        lib.stencil2d_levels.argtypes = (
-            [ptr, ptr, i32, i32, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr])
-        lib.stencil2d_levels.restype = i32
-        lib.stencil3d_levels.argtypes = (
-            [ptr, ptr, i32, i32, i32, ptr, ptr, i32, i32, i32, i32,
-             i32, i32, i32, ptr])
-        lib.stencil3d_levels.restype = i32
+        for suffix in BUILDS.values():
+            fn2 = getattr(lib, "stencil2d_levels" + suffix)
+            fn2.argtypes = [ptr, ptr, i32, i32, ptr, ptr, i32, i32, i32, i32,
+                            i32, i32, ptr]
+            fn2.restype = i32
+            fn3 = getattr(lib, "stencil3d_levels" + suffix)
+            fn3.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr, i32, i32, i32,
+                            i32, i32, i32, i32, ptr]
+            fn3.restype = i32
         if lib.stencil_max_taps() != MAX_TAPS:
             raise RuntimeError("stencil.cu MAX_TAPS disagrees with kernels.py")
         return lib
@@ -168,7 +184,12 @@ def build() -> _Library:
 def _levels_ref(src: torch.Tensor, dst: torch.Tensor,
                 taps: LevelTaps) -> torch.Tensor:
     """Zero-pad ``src`` by ``frame``, apply ``levels`` 'valid' shifted-slice
-    sums in fp32 (taps in table order), copy the interior into ``dst``."""
+    sums in fp32 (taps in table order), copy the interior into ``dst``.
+
+    The plain version of both builds: a bfloat16 ``src`` is upcast to
+    fp32, every level stays fp32, and the result is rounded to ``dst``'s
+    dtype once at the copy (round to nearest even), as the bf16 kernel
+    does."""
     H, r = taps.frame, taps.reach
     cur = F.pad(src.to(torch.float32), (H,) * (2 * src.dim()))
     for _ in range(taps.levels):
@@ -198,8 +219,9 @@ def stencil3d_levels_ref(src, dst, taps: LevelTaps):
 
 class LevelsKernel:
     """Wrapper of one kernel: ``kernel(src, dst, taps)`` writes the
-    interior of ``dst`` in place and returns it.  ``launches`` counts the
-    kernel's launches (never the plain version's calls)."""
+    interior of ``dst`` in place and returns it.  ``src`` and ``dst``
+    share one dtype of ``BUILDS``.  ``launches`` counts the kernel's
+    launches in both builds (never the plain version's calls)."""
 
     route = "cuda"
     source = "drstencil_tpu_torch/csrc/stencil.cu"
@@ -223,14 +245,15 @@ class LevelsKernel:
         if len(taps.coeffs) > MAX_TAPS:
             raise ValueError(f"{len(taps.coeffs)} taps exceed MAX_TAPS="
                              f"{MAX_TAPS}")
+        if src.dtype != dst.dtype or src.dtype not in BUILDS:
+            raise TypeError(f"{self.name} takes src and dst of one dtype in "
+                            f"{[str(d) for d in BUILDS]}, got {src.dtype} "
+                            f"and {dst.dtype}")
         if src.device.type == "cpu" and dst.device.type == "cpu":
             return self.plain(src, dst, taps)
         if src.device.type != "cuda" or src.device != dst.device:
             raise ValueError(f"{self.name} needs src and dst on one CUDA "
                              f"device, got {src.device} and {dst.device}")
-        if src.dtype != torch.float32 or dst.dtype != torch.float32:
-            raise TypeError(f"{self.name} takes float32 only, got "
-                            f"{src.dtype} and {dst.dtype}")
         if not (src.is_contiguous() and dst.is_contiguous()):
             raise ValueError(f"{self.name} needs contiguous tensors")
         if src.untyped_storage().data_ptr() == dst.untyped_storage().data_ptr():
@@ -244,7 +267,7 @@ class LevelsKernel:
         coefs = np.ascontiguousarray(taps.coeffs, dtype=np.float32)
         with torch.cuda.device(src.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = getattr(lib, self.name)(
+            err = getattr(lib, self.name + BUILDS[src.dtype])(
                 src.data_ptr(), dst.data_ptr(), *src.shape,
                 offs.ctypes.data, coefs.ctypes.data, len(coefs),
                 taps.levels, taps.reach, taps.frame, *tile, stream)

@@ -54,10 +54,8 @@ class StencilProgram:
         self.spec = spec
         self.cfg = cfg
         self.device = stream_mod.resolve_device(device)
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype {cfg.dtype!r}: this port runs float32 state only")
-        self.dtype = np.dtype(np.float32)
+        # the state's torch dtype; every level computes in fp32 whatever it is
+        self.dtype: torch.dtype = stream_mod.state_dtype(cfg.dtype)
         self.an: Analysis = analyze(
             spec, step=cfg.step, distance=cfg.distance,
             merge_forward=cfg.merge_forward,
@@ -89,12 +87,15 @@ class StencilProgram:
     # -- state ----------------------------------------------------------
     def init_state(self, seed: int = 0):
         """Initial ping-pong state: ``golden.random_state`` (the JAX
-        package's numpy state) cast to float32 and moved to the device."""
+        package's numpy state) rounded from fp64 to the state's dtype
+        (nearest even, as numpy's and ml_dtypes' casts round) and moved to
+        the device."""
         a0, b0 = golden.random_state(self.spec, seed, dtype=np.float64)
-        return {
-            "a": torch.from_numpy(a0.astype(self.dtype)).to(self.device),
-            "b": torch.from_numpy(b0.astype(self.dtype)).to(self.device),
-        }
+        return {k: self._cast(x).to(self.device)
+                for k, x in (("a", a0), ("b", b0))}
+
+    def _cast(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(x).to(self.dtype)
 
     def run_pairs(self, state, pairs: int):
         pair = self.pair_fn()
@@ -104,7 +105,9 @@ class StencilProgram:
         return dict(state)
 
     def final_a(self, state) -> np.ndarray:
-        return state["a"].detach().to("cpu", copy=True).numpy()
+        """The ``a`` buffer as numpy: float32 for either state dtype (numpy
+        has no bfloat16; float32 holds every bfloat16 value exactly)."""
+        return state["a"].detach().to("cpu", torch.float32, copy=True).numpy()
 
     # -- protocol --------------------------------------------------------
     def num_pairs(self) -> int:
@@ -116,8 +119,8 @@ class StencilProgram:
         n = pairs if pairs is not None else self.num_pairs()
         got = self.final_a(self.run_pairs(self.init_state(seed), n))
         a0, b0 = golden.random_state(self.spec, seed, dtype=np.float64)
-        a = a0.astype(self.dtype).astype(np.float64)
-        b = b0.astype(self.dtype).astype(np.float64)
+        # golden on the same state-dtype-rounded initial state
+        a, b = (self._cast(x).to(torch.float64).numpy() for x in (a0, b0))
         for _ in range(n):
             b = golden.apply_interior(a, b, self.an.fused, self.an.halo)
             a = golden.apply_interior(b, a, self.an.fused, self.an.halo)

@@ -29,6 +29,17 @@ from drstencil_tpu_torch.ops.kernels import LevelTaps
 # trapezoid depth the JAX package compiles as a fori_loop; kept for
 # vfuse's rejection rule and device_check's deep gold
 DEEP_LEVELS = 5
+# KernelConfig.dtype -> the state's torch dtype
+STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def state_dtype(name: str) -> torch.dtype:
+    """The torch dtype of the state for ``KernelConfig.dtype`` ``name``."""
+    try:
+        return STATE_DTYPES[name]
+    except KeyError:
+        raise ValueError(f"dtype {name!r}: the port runs "
+                         f"{sorted(STATE_DTYPES)} state") from None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -110,9 +121,7 @@ def level_plan(an: Analysis, cfg: KernelConfig) -> LevelTaps:
     """The level schedule of one application (stream.py:452-507): which
     tap table, how many levels, and each level's reach ``H / L``."""
     check_geometry(an)
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype {cfg.dtype!r}: this port runs float32 state only")
+    state_dtype(cfg.dtype)
     s_levels = n_levels(an, cfg)
     if cfg.block > 1 and not (cfg.trapezoid and an.step > 1):
         raise ValueError("block > 1 requires trapezoid with step > 1")
@@ -155,11 +164,12 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None):
 
     ``f`` writes the interior ``[H, dim - H)`` of ``dst`` in place from
     ``src`` and leaves ``dst``'s frame untouched; it returns ``dst``.
-    Both are real-shaped contiguous float32 tensors on ``device``
+    Both are real-shaped contiguous tensors of ``cfg.dtype`` on ``device``
     (``None`` = CUDA; ``"cpu"`` runs the kernels' plain versions).
     """
     device = resolve_device(device)
     plan = level_plan(an, cfg)
+    dtype = state_dtype(cfg.dtype)
     kernel = kernels.kernel_for(len(an.spec.dims))
     dims = tuple(an.spec.dims)
 
@@ -169,6 +179,9 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None):
                              f"kernel built for {device}")
         if tuple(src.shape) != dims:
             raise ValueError(f"grid {tuple(src.shape)} is not {dims}")
+        if src.dtype != dtype or dst.dtype != dtype:
+            raise TypeError(f"tensors of {src.dtype}/{dst.dtype}, kernel "
+                            f"built for {dtype}")
         return kernel(src, dst, plan)
 
     return f

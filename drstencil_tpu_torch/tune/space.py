@@ -1,0 +1,137 @@
+"""Autotuner search space and validity filter — the port of
+``drstencil_tpu/tune/space.py``.
+
+The JAX space sweeps every knob of the TPU kernel.  On Hopper only some of
+them change the kernel that runs (``ops/config.py``): ``variant``,
+``step``, ``distance`` (through the analysis), ``trapezoid``, ``block``
+and ``dtype``.  The space keeps the JAX rules on those axes — the
+distance fallback, the trapezoid gate, the 2D block levels and their
+gates, the bf16 slab and one ``xla`` candidate per step — and collapses
+the TPU-only axes (``tm``, ``ch``, ``lane_mode``, ``vfuse``, ``jfix``,
+``prefetch``) to one representative each (:func:`representative`), so
+that no kernel is measured twice under two labels.  The CTA tile is not
+a knob yet: ``ops/kernels.tile_shape`` picks it.
+
+The VMEM budget becomes :func:`smem_estimate`: a config is valid when
+``analyze``, ``ops/stream.level_plan`` (frame rules, ``MAX_TAPS``) and
+``ops/kernels.tile_shape`` (227 KB of shared memory) all accept it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, Optional, Tuple
+
+from drstencil_tpu_torch.ir.passes import (AnalysisError, analyze,
+                                           default_distance, fuse, order_of,
+                                           partition)
+from drstencil_tpu_torch.ir.spec import StencilSpec
+from drstencil_tpu_torch.ops import kernels
+from drstencil_tpu_torch.ops import stream as stream_mod
+from drstencil_tpu_torch.ops.config import KernelConfig
+
+STEPS = (1, 2, 3, 4, 5, 6, 8)
+# coefficient fusion and block levels past this many fused taps are left
+# to the trapezoid (the JAX space's gate, kept so both spaces agree)
+MAX_FUSED_TAPS = 64
+
+
+@dataclass(frozen=True)
+class Candidate:
+    cfg: KernelConfig
+    smem_bytes: int
+    tile: Tuple[int, ...]
+
+
+def representative(cfg: KernelConfig, ndim: int) -> KernelConfig:
+    """``cfg`` with every knob that does nothing on Hopper set to the one
+    value the space uses: ``tm=None``, ``ch=None``, ``lane_mode`` "roll"
+    in 2D and None in 3D, ``vfuse=False``, ``jfix="outer"``,
+    ``prefetch=2``, ``interpret=False``."""
+    return cfg.replace(tm=None, ch=None,
+                       lane_mode="roll" if ndim == 2 else None,
+                       vfuse=False, jfix="outer", prefetch=2,
+                       interpret=False)
+
+
+def smem_estimate(spec: StencilSpec,
+                  cfg: KernelConfig) -> Optional[Candidate]:
+    """The streaming kernel's shared memory per CTA and its tile, or None
+    where the config is invalid for this stencil (the FilterParams role)."""
+    try:
+        an = analyze(spec, step=cfg.step, distance=cfg.distance,
+                     merge_forward=cfg.merge_forward)
+        plan = stream_mod.level_plan(an, cfg)
+        tile = kernels.tile_shape(spec.ndim, plan.frame, plan.levels)
+    except (ValueError, NotImplementedError):  # AnalysisError included
+        return None
+    return Candidate(cfg=cfg, tile=tile, smem_bytes=kernels.smem_bytes(
+        tile, plan.frame, kernels.n_buffers(plan.levels)))
+
+
+def _step_distance(spec: StencilSpec, step: int) -> Optional[int]:
+    """Distance of ``step``'s representative: 0 (auto) where the default
+    partition works, else the largest valid distance in the reference
+    tuner's range [(step-1)*order, step*order] (pure-diagonal stencils at
+    odd steps), else None (no valid distance: the step is skipped)."""
+    fused = fuse(spec.taps, step)
+    try:
+        partition(fused, default_distance(fused))
+        return 0
+    except AnalysisError:
+        pass
+    order = order_of(spec.taps)
+    for d in range(step * order, max(1, (step - 1) * order) - 1, -1):
+        try:
+            partition(fused, d)
+            return d
+        except AnalysisError:
+            continue
+    return None
+
+
+def default_space(spec: StencilSpec) -> Iterator[Candidate]:
+    """Valid candidates for one stencil: per step, the streaming kernel's
+    (trapezoid, block) modes in fp32, the bf16 slab, and the xla gold."""
+    is3d = spec.ndim == 3
+    order = order_of(spec.taps)
+    seen = set()
+
+    def emit(cfg):
+        cand = smem_estimate(spec, representative(cfg, spec.ndim))
+        if cand is not None and cand.cfg.label() not in seen:
+            seen.add(cand.cfg.label())
+            yield cand
+
+    for step in STEPS:
+        distance = _step_distance(spec, step)
+        if distance is None:
+            continue
+        n_fused = len(fuse(spec.taps, step))
+        if step == 1:
+            traps = (False,)
+        elif step <= 3 and n_fused <= MAX_FUSED_TAPS:
+            traps = (False, True)
+        else:
+            traps = (True,)
+        for trap in traps:
+            blocks = [1]
+            # 2D block-fused levels (the JAX space leaves 3D ones out);
+            # the gates are the JAX space's, so both spaces agree
+            if trap and not is3d:
+                blocks += [b for b in (2, 3)
+                           if step % b == 0 and b < step and b * order < 6
+                           and len(fuse(spec.taps, b)) <= MAX_FUSED_TAPS]
+            for blk in blocks:
+                yield from emit(KernelConfig(
+                    variant="stream", step=step, distance=distance,
+                    trapezoid=trap, block=blk))
+        # bf16 state: half the bytes per cell
+        for trap in traps:
+            yield from emit(KernelConfig(
+                variant="stream", step=step, distance=distance,
+                trapezoid=trap, dtype="bfloat16"))
+        cfg = KernelConfig(variant="xla", step=step, distance=distance)
+        if cfg.label() not in seen:
+            seen.add(cfg.label())
+            yield Candidate(cfg=cfg, smem_bytes=0, tile=())

@@ -1,17 +1,24 @@
 """Best-known kernel configs per benchmark stencil, and the card's roofline.
 
-``best_config`` reads ``benchmarks/tuned.json`` — the JAX package's tuned
-winners — unchanged (``KernelConfig.from_dict`` keeps every field).  The
-roofline denominator is the card's own HBM bandwidth, chosen from its
+The port's tuner (``tune.tuner``) records the winning config per stencil
+into ``benchmarks/tuned_gpu.json`` (``TUNED_GPU_PATH``), monotone under
+the dtype-normalised objective, and never writes ``benchmarks/tuned.json``
+(the JAX package's TPU winners).  ``best_config`` reads a ``tuned_gpu.json``
+entry where there is one, else the ``tuned.json`` entry unchanged
+(``KernelConfig.from_dict`` keeps every field), else a curated default.
+The roofline denominator is the card's own HBM bandwidth, chosen from its
 device name; an unknown card raises rather than borrow another's number.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
+from dataclasses import asdict
 
 from drstencil_tpu_torch.ops.config import KernelConfig
+from drstencil_tpu_torch.ops.stream import state_dtype
 
 # Published peaks by device-name fragment (NVIDIA data sheets; dense, at
 # the full power limit): (HBM GB/s, fp32 CUDA-core TFLOP/s).  Checked in
@@ -49,11 +56,22 @@ def naive_sol_gstencil(itemsize: int = 4,
     return hbm_peak_gbps(device_name) / (2 * itemsize)
 
 
-TUNED_PATH = os.path.join(
+def objective_ms(ms_per_step: float, dtype: str = "float32") -> float:
+    """SoL-normalised objective: fp32-equivalent ms per timestep.  The
+    roofline fraction divides by the naive SoL of the config's own dtype,
+    twice as high for bf16, so a bf16 config must be twice as fast in raw
+    ms to score the same; identical to raw ms for fp32."""
+    return ms_per_step * 4.0 / state_dtype(dtype).itemsize
+
+
+BENCH_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "benchmarks",
-    "tuned.json",
 )
+# the JAX package's TPU winners: read, never written by the port
+TUNED_PATH = os.path.join(BENCH_DIR, "tuned.json")
+# the port's own winners on the card
+TUNED_GPU_PATH = os.path.join(BENCH_DIR, "tuned_gpu.json")
 
 # Curated defaults of the JAX package, for names tuned.json lacks.
 _DEFAULTS = {
@@ -72,17 +90,79 @@ _DEFAULTS = {
 }
 
 
-def tuned_entries(path: str = TUNED_PATH) -> dict:
-    """The tuned.json table: name -> {"config": ..., "score": ...}."""
-    with open(path) as f:
+def tuned_entries(path: str | None = None) -> dict:
+    """A winners table (default ``tuned.json``): name -> {"config": ...,
+    "score": ...}."""
+    with open(path or TUNED_PATH) as f:
         return json.load(f)
 
 
-def best_config(name: str) -> KernelConfig:
+def load_table(path: str) -> dict:
+    """A winners table or ledger at ``path``; {} where it is missing or
+    unreadable."""
     try:
-        tuned = tuned_entries()
-        if name in tuned:
-            return KernelConfig.from_dict(tuned[name]["config"])
-    except (OSError, json.JSONDecodeError, TypeError):
-        pass
+        return tuned_entries(path)
+    except (OSError, json.JSONDecodeError):
+        return {}
+
+
+def best_config(name: str) -> KernelConfig:
+    """The ``tuned_gpu.json`` winner, else the ``tuned.json`` one, else the
+    curated default."""
+    for path in (TUNED_GPU_PATH, TUNED_PATH):
+        try:
+            return KernelConfig.from_dict(load_table(path)[name]["config"])
+        except (KeyError, TypeError):
+            continue
     return KernelConfig(**_DEFAULTS.get(name, {"variant": "stream"}))
+
+
+def ledger_ms(entry: dict) -> float:
+    """ms per plain timestep of an ok ledger entry (legacy entries carry
+    only ms_per_pair, which covers 2*step timesteps)."""
+    ms = entry.get("ms_per_step")
+    if ms is None:
+        ms = entry.get("ms_per_pair", 1e18) / (
+            2 * entry["config"].get("step", 1))
+    return ms
+
+
+def record_best(name: str, cfg: KernelConfig, score: dict) -> None:
+    """Record a measured best config in ``TUNED_GPU_PATH`` — monotone:
+    never replaces a stored entry whose SoL-normalised objective is better
+    (a short sweep must not regress the record of a longer earlier one)."""
+    path = TUNED_GPU_PATH
+    tuned = load_table(path)
+    entry = tuned.get(name, {})
+    old = entry.get("score", {}).get("ms_per_step")
+    new = score.get("ms_per_step")
+    if old is not None and new is not None:
+        old_obj = objective_ms(
+            old, entry.get("config", {}).get("dtype", "float32"))
+        if old_obj <= objective_ms(new, cfg.dtype):
+            return
+    tuned[name] = {"config": asdict(cfg), "score": score}
+    with open(path, "w") as f:
+        json.dump(tuned, f, indent=2, sort_keys=True)
+
+
+def reconcile_from_ledgers(ledger_dir: str) -> dict:
+    """Rebuild ``TUNED_GPU_PATH`` as the argmin over every ok measurement
+    in a tuning directory's ``<stencil>.ledger.json`` files; returns
+    name -> ms per step of the argmin."""
+    best: dict = {}
+    for path in glob.glob(os.path.join(ledger_dir, "*.ledger.json")):
+        name = os.path.basename(path)[: -len(".ledger.json")]
+        for entry in load_table(path).values():
+            if entry.get("status") != "ok":
+                continue
+            ms = ledger_ms(entry)
+            obj = objective_ms(ms, entry["config"].get("dtype", "float32"))
+            if name not in best or obj < best[name][0]:
+                best[name] = (obj, ms, entry)
+    for name, (_, ms, entry) in best.items():
+        score = {"ms_per_step": ms}
+        if "device" in entry:
+            score["device"] = entry["device"]
+        record_best(name, KernelConfig.from_dict(entry["config"]), score)
+    return {k: v[1] for k, v in best.items()}
