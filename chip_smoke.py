@@ -5,6 +5,9 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py                      # every tuned stencil
     python3 chip_smoke.py --stencils 2d5pt_star,3d7pt_star
+    python3 chip_smoke.py --mesh-devices cuda:0,cuda:1,cuda:2,cuda:3
+                                  # four cards: phases 11 and 13 with one shard
+                                  # per card, and weak scaling measured
 
 It builds the CUDA kernels from ``drstencil_tpu_torch/csrc`` (nvcc, into
 ``build/``) and runs, raising on the first failure:
@@ -18,8 +21,8 @@ It builds the CUDA kernels from ``drstencil_tpu_torch/csrc`` (nvcc, into
    ``.stc`` size: ``time()``, then ``device_check(pairs=1) <= 1e-3`` —
    with the kernel's launch count read around it;
 4. ``check()`` against the fp64 golden model at a reduced size;
-5. the graft entry's config (2d5pt_star, step 1, 1024²) through
-   ``build_stream_kernel``;
+5. the entry point ``drstencil_tpu_torch.entry.entry()`` (2d5pt_star,
+   step 1, 1024²): one pair against the torch gold and the fp64 golden;
 6. the bf16 builds of the kernels against their plain version on every
    winner's tap table at the ``.stc`` size: at most one bf16 ulp of the
    plain value per cell (plus fp32 noise), with the same times, the bound
@@ -32,8 +35,28 @@ It builds the CUDA kernels from ``drstencil_tpu_torch/csrc`` (nvcc, into
    at the ``.stc`` size (fp32, bf16 and xla candidates), one config
    through the isolated worker, and one profiler trace, into a temporary
    directory with ``TUNED_GPU_PATH`` pointed there;
-10. one ``{"kernels": [...]}`` line (fp32 and bf16 rows), the card line,
-    then the ok line.
+10. the shard-local kernels against their plain version, fp32 and bf16,
+    on a quarter slab of the ``.stc`` grid with its ghost rows, for the
+    first, an interior and the last shard's store range (fp32 <= 1e-5
+    relative, bf16 <= 1 ulp; everything outside the range bit-unchanged);
+11. the sharded main path — ``sharded_stream_pair(spec, best_config(name),
+    make_mesh(4, devices=["cuda:0"] * 4))`` at the ``.stc`` size for every
+    winner in fp32 and four of them in bf16: one pair against the
+    single-device ``StencilProgram``'s pair (fp32 <= 1e-6 relative, bf16 <=
+    1 ulp) and the torch gold (the ``device_check`` gates), ms/pair beside
+    the single-device program's, the exchange's bytes against the model's,
+    4 launches per application; then the weak-scaling MODEL's rows.  Four
+    shards on one card run one after another: the sharded ms/pair shows
+    what the exchange and the slab edges cost, not weak scaling;
+12. factor mode: ``stencil2d_factor_levels`` (fp32, bf16) against its
+    plain version at 8192² on 2d25pt_box, 2d9pt_star and 2d9pt_cross at
+    steps 1 and 2, with a cuDNN convolution of the unfactored 5x5 table per
+    step as the yardstick; then ``StencilProgram(spec, KernelConfig(step,
+    factor=True))``: ``time()`` and ``device_check`` beside the unfactored
+    trapezoid of the same step;
+13. ``dryrun_multichip(4, devices=["cuda:0"] * 4)``;
+14. one ``{"kernels": [...]}`` line (every kernel, fp32 and bf16 rows), the
+    card line, then the ok line.
 
 Details also go to ``build/chip_smoke.json``.  ``benchmarks/tuned.json``
 is checked byte-identical at the end.  Without CUDA, or outside a
@@ -49,6 +72,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1e-5       # kernel vs its plain version, relative to max|plain|
@@ -64,6 +88,18 @@ GOLDEN_TOL = {"float32": (5e-3, 1e-3), "bfloat16": (2.0, 0.5)}
 MAX_TOL, RMS_TOL = GOLDEN_TOL["float32"]
 GRAFT_DIMS = (1024, 1024)
 REDUCED = {2: (1024, 1024), 3: (128, 128, 128)}
+# sharded result vs the single-device program's, fp32 (every stored cell
+# runs the same operations on the same values, so 0 is expected)
+SHARD_TOL = 1e-6
+N_SHARDS = 4
+# phase 10: the stencils whose plans the shard kernels are held on; the
+# bf16 sharded main path runs the same four, so every row has launches
+SHARD_STENCILS = ("2d5pt_star", "2d25pt_box", "3d7pt_star", "3d27pt_box")
+# phase 12: factor mode's stencils and steps
+FACTOR_STENCILS = ("2d25pt_box", "2d9pt_star", "2d9pt_cross")
+FACTOR_STEPS = (1, 2)
+# phases 11-12: pairs per timing (3 repeats, after 1 warmup pair)
+PAIRS = 4
 # phase 9: the stencils swept, the pairs per timing, the worker's cap
 TUNE_STENCILS = ("2d5pt_star", "3d7pt_star")
 TUNE_PAIRS = 4
@@ -116,13 +152,15 @@ def main(argv=None) -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from drstencil_tpu_torch import entry as entry_mod
     from drstencil_tpu_torch.ir.passes import analyze
     from drstencil_tpu_torch.ir.spec import StencilSpec, load_stc
     from drstencil_tpu_torch.ops import kernels, xla_ref
     from drstencil_tpu_torch.ops.config import KernelConfig
-    from drstencil_tpu_torch.ops.runner import StencilProgram
-    from drstencil_tpu_torch.ops.stream import (build_stream_kernel,
-                                                level_plan, state_dtype)
+    from drstencil_tpu_torch.ops.runner import StencilProgram, relative_diff
+    from drstencil_tpu_torch.ops.stream import level_plan, state_dtype
+    from drstencil_tpu_torch.parallel import halo, stream_shard
+    from drstencil_tpu_torch.parallel.model import winner_rows
     from drstencil_tpu_torch.tune import session as session_mod
     from drstencil_tpu_torch.tune import tuned as tuned_mod
     from drstencil_tpu_torch.tune.tuned import (
@@ -133,7 +171,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stencils", default="",
                     help="comma-separated subset of benchmarks/tuned.json")
+    ap.add_argument("--mesh-devices", default="",
+                    help=f"{N_SHARDS} comma-separated CUDA devices: run only "
+                         "the multi-device phases (11 and 13) with the mesh "
+                         "on them, and measure weak scaling; the default "
+                         f"mesh names cuda:0 {N_SHARDS} times")
     args = ap.parse_args(argv)
+    mesh_devices = (args.mesh_devices.split(",") if args.mesh_devices
+                    else ["cuda:0"] * N_SHARDS)
     names = sorted(tuned_entries())
     if args.stencils:
         names = [n for n in args.stencils.split(",") if n]
@@ -160,81 +205,371 @@ def main(argv=None) -> int:
     report = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "build_seconds": lib.build_seconds, "kernels": [],
-              "main_path": [], "golden": []}
+              "main_path": [], "golden": [], "sharded": [], "factor": [],
+              "weak_scaling_measured": []}
 
     specs = {n: load_stc(os.path.join(bench, n + ".stc")) for n in names}
+    shard_names = [n for n in SHARD_STENCILS if n in specs]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def kernel_row(name, dtype):
-        """Kernel vs plain version on ``name``'s winner plan at the .stc
-        size in ``dtype``, with the kernel's, the plain version's and a
-        cuDNN convolution's times beside the kernel's bound."""
-        spec = specs[name]
-        cfg = best_config(name).replace(dtype=dtype)
-        an = analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
-        plan = level_plan(an, cfg)
-        kernel = kernels.kernel_for(spec.ndim)
-        tdt = state_dtype(dtype)
-        src = (torch.rand(spec.dims, generator=gen, device=dev)
-               * 100.0).to(tdt)
-        got = torch.zeros_like(src)
-        want = torch.zeros_like(src)
-        kernel(src, got, plan)
-        kernel.plain(src, want, plan)
-        torch.cuda.synchronize()
+    def within_tolerance(got, want, dtype, row):
+        """fp32: max|got - want| <= KERNEL_TOL * max|want|; bf16: every cell
+        within one bf16 ulp of the plain value (plus fp32 noise).  Fills the
+        row's error fields."""
         diff = (got.float() - want.float()).abs()
-        max_abs = float(diff.max())
-        rel = max_abs / float(want.float().abs().max())
-        ms = cuda_ms(torch, lambda: kernel(src, got, plan), 20)
-        plain_ms = cuda_ms(torch, lambda: kernel.plain(src, want, plan), 3)
-        # yardstick: one cuDNN convolution per level (same taps, 'same'
-        # padding, the state's dtype), never called by the port
-        r = plan.reach
-        weight = torch.zeros((1, 1) + (2 * r + 1,) * spec.ndim, device=dev)
-        for off, c in zip(plan.offsets.tolist(), plan.coeffs.tolist()):
+        top = float(want.float().abs().max())
+        row["max_abs_err"] = max(float(diff.max()),
+                                 row.get("max_abs_err", 0.0))
+        row["rel_err"] = row["max_abs_err"] / top
+        if dtype == "float32":
+            return row["rel_err"] <= KERNEL_TOL
+        ulp = bf16_ulp(torch, want)
+        safe = torch.where(ulp > 0, ulp, torch.ones_like(ulp))
+        row["max_ulps"] = max(float((diff / safe).max()),
+                              row.get("max_ulps", 0.0))
+        row["cells_differing"] = int((diff > 0).sum())
+        return bool((diff <= ulp + BF16_NOISE * top).all())
+
+    def compare(stencil, kernel, plan, an, cfg, conv_table, conv_calls,
+                rows=None, also_rows=()):
+        """``kernel`` vs its plain version on ``plan`` at ``an``'s dims in
+        ``cfg.dtype``, with the kernel's, the plain version's and a cuDNN
+        convolution's times beside the kernel's bound.  ``rows`` is a
+        shard kernel's store range (timed); ``also_rows`` are further
+        ranges that are only checked.  A shard kernel's destination is
+        random, and everything outside the range must come back bit for
+        bit."""
+        dtype = cfg.dtype
+        tdt = state_dtype(dtype)
+        shape = tuple(an.spec.dims)
+        src = (torch.rand(shape, generator=gen, device=dev) * 100.0).to(tdt)
+        if rows is None:
+            d0 = torch.zeros_like(src)
+        else:
+            d0 = (torch.rand(shape, generator=gen, device=dev) - 0.5).to(tdt)
+        factor = kernels.is_factor(plan)
+        row = {
+            "name": kernel.name + kernels.BUILDS[tdt], "stencil": stencil,
+            "dtype": dtype, "route": kernel.route,
+            "source": kernel.source, "replaces": kernel.replaces,
+            "launches": 0, "levels": plan.levels, "frame": plan.frame,
+            "dims": list(shape),
+            "taps": plan.taps_per_step if factor else len(plan.coeffs),
+            "tile": list(kernels.tile_shape(len(shape), plan.frame,
+                                            plan.levels, factor)),
+        }
+        ok = True
+        for r in ((rows,) if rows is None else (rows, *also_rows)):
+            args = () if r is None else (r,)
+            got, want = d0.clone(), d0.clone()
+            kernel(src, got, plan, *args)
+            kernel.plain(src, want, plan, *args)
+            torch.cuda.synchronize()
+            ok = within_tolerance(got, want, dtype, row) and ok
+            if r is not None:
+                H = plan.frame
+                outside = torch.ones(shape, dtype=torch.bool, device=dev)
+                outside[(slice(r[0], r[1]),) + tuple(
+                    slice(H, n - H) for n in shape[1:])] = False
+                kept = torch.equal(got[outside], d0[outside])
+                row.setdefault("rows_checked", []).append(
+                    {"rows": list(r), "outside_unchanged": kept})
+                ok = ok and kept
+                del outside
+        args = () if rows is None else (rows,)
+        got, want = d0.clone(), d0.clone()
+        row["ms"] = cuda_ms(torch, lambda: kernel(src, got, plan, *args), 20)
+        row["plain_ms"] = cuda_ms(
+            torch, lambda: kernel.plain(src, want, plan, *args), 3)
+        # yardstick: cuDNN convolutions of the same taps ('same' padding,
+        # the state's dtype, TF32 off), never called by the port
+        offsets, coeffs, r = conv_table
+        weight = torch.zeros((1, 1) + (2 * r + 1,) * len(shape), device=dev)
+        for off, c in zip(offsets, coeffs):
             weight[(0, 0) + tuple(o + r for o in off)] = c
         weight = weight.to(tdt)
-        conv = F.conv2d if spec.ndim == 2 else F.conv3d
+        conv = F.conv2d if len(shape) == 2 else F.conv3d
         x5 = src[None, None]
 
         def library():
             y = x5
-            for _ in range(plan.levels):
-                y = conv(y, weight, padding=plan.reach)
+            for _ in range(conv_calls):
+                y = conv(y, weight, padding=r)
             return y
 
-        library_ms = cuda_ms(torch, library, 3)
-        bound_ms, bound_by = traffic_model(an, cfg).bound_ms(
+        row["library_ms"] = cuda_ms(torch, library, 3)
+        row["bound_ms"], row["bound_by"] = traffic_model(an, cfg).bound_ms(
             hbm_gbps, fp32_tflops)
-        row = {
-            "name": kernel.name + kernels.BUILDS[tdt], "stencil": name,
-            "dtype": dtype, "route": kernel.route,
-            "source": kernel.source, "replaces": kernel.replaces,
-            "launches": 0, "max_abs_err": max_abs, "rel_err": rel,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "taps": len(plan.coeffs), "levels": plan.levels,
-            "frame": plan.frame,
-            "tile": list(kernels.tile_shape(spec.ndim, plan.frame,
-                                            plan.levels)),
-        }
-        if dtype == "float32":
-            ok = rel <= KERNEL_TOL
-        else:
-            ulp = bf16_ulp(torch, want)
-            noise = BF16_NOISE * float(want.float().abs().max())
-            ok = bool((diff <= ulp + noise).all())
-            safe = torch.where(ulp > 0, ulp, torch.ones_like(ulp))
-            row["max_ulps"] = float((diff / safe).max())
-            row["cells_differing"] = int((diff > 0).sum())
-        print(f"kernel {name}: " + json.dumps(row))
+        print(f"kernel {stencil}: " + json.dumps(row))
         if not ok:
-            raise RuntimeError(f"{row['name']} on {name}: kernel vs plain "
+            raise RuntimeError(f"{row['name']} on {stencil}: kernel vs plain "
                                f"out of tolerance: {row}")
-        del src, got, want, x5, diff
+        del src, d0, got, want, x5
         torch.cuda.empty_cache()
         return row
+
+    def level_table(plan):
+        return plan.offsets.tolist(), plan.coeffs.tolist(), plan.reach
+
+    def kernel_row(name, dtype):
+        """Kernel vs plain version on ``name``'s winner plan at the .stc
+        size in ``dtype``; the yardstick is one convolution per level."""
+        spec = specs[name]
+        cfg = best_config(name).replace(dtype=dtype)
+        an = analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
+        plan = level_plan(an, cfg)
+        return compare(name, kernels.kernel_for(spec.ndim), plan, an, cfg,
+                       level_table(plan), plan.levels)
+
+    def shard_kernel_row(name, dtype):
+        """The shard-local kernel on ``name``'s winner plan on a quarter
+        slab of the .stc grid with its ghost rows, for an interior shard's
+        store range (timed), the first shard's and the last's."""
+        spec = specs[name]
+        cfg = best_config(name).replace(dtype=dtype)
+        an = analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
+        plan = level_plan(an, cfg)
+        H, local = plan.frame, spec.dims[0] // N_SHARDS
+        slab = StencilSpec(spec.name, (local + 2 * H,) + tuple(spec.dims[1:]),
+                           spec.iterations, spec.taps)
+        an_slab = analyze(slab, cfg.step, cfg.distance, cfg.merge_forward)
+        return compare(name, kernels.kernel_for(spec.ndim, shard=True), plan,
+                       an_slab, cfg, level_table(plan), plan.levels,
+                       rows=(H, H + local),
+                       also_rows=((2 * H, H + local), (H, local)))
+
+    def factor_kernel_row(name, step, dtype):
+        """The factor-mode kernel on ``name`` at ``step`` at the .stc size;
+        the yardstick is one convolution of the unfactored 5x5 table per
+        timestep."""
+        spec = specs.get(name) or load_stc(os.path.join(bench, name + ".stc"))
+        cfg = KernelConfig(step=step, factor=True, dtype=dtype)
+        an = analyze(spec, step)
+        plan = level_plan(an, cfg)
+        taps = sorted(spec.taps.items())
+        row = compare(name, kernels.stencil2d_factor_levels, plan, an, cfg,
+                      ([o for o, _ in taps], [c for _, c in taps], 2), step)
+        row["step"] = step
+        return row
+
+    def time_pairs(pair, a, b, devices=(dev,)):
+        """Median ms per pair over 3 repeats of ``PAIRS`` pairs after one
+        warmup pair: CUDA events on one card; across several cards, the
+        host's clock around work that ends in a synchronize of each."""
+        if len(set(devices)) == 1:
+            return sorted(cuda_ms(torch, lambda: pair(a, b), PAIRS)
+                          for _ in range(3))[1]
+
+        def run(n):
+            for _ in range(n):
+                pair(a, b)
+            for d in set(devices):
+                torch.cuda.synchronize(d)
+
+        reps = []
+        for _ in range(3):
+            run(1)      # as cuda_ms warms up: both ways run the same pairs
+            t0 = time.perf_counter()
+            run(PAIRS)
+            reps.append((time.perf_counter() - t0) / PAIRS * 1e3)
+        return sorted(reps)[1]
+
+    def real_rows(slabs, g):
+        """The sharded state's real rows joined on the first card."""
+        H, local = g.halo, g.local_rows
+        return torch.cat([x[H:H + local].to(dev) for x in slabs])
+
+    def same_cells(x, y):
+        """Whether two states agree bit for bit (a NaN equals a NaN: the
+        timed pairs of an operator that grows the state may overflow)."""
+        return bool(((x == y) | (x.isnan() & y.isnan())).all())
+
+    def sharded_main_path(name, dtype):
+        """``sharded_stream_pair`` on ``N_SHARDS`` shards (of one card, or
+        on ``--mesh-devices``) at the .stc size against the single-device
+        program from the same state: after one pair, and again after the
+        timed pairs, which both run alike."""
+        spec, cfg = specs[name], best_config(name).replace(dtype=dtype)
+        prog = StencilProgram(spec, cfg)
+        mesh = halo.make_mesh(N_SHARDS, devices=mesh_devices)
+        spair, g = stream_shard.sharded_stream_pair(spec, cfg, mesh)
+        kernel = kernels.kernel_for(spec.ndim, shard=True)
+        state = prog.init_state(0)
+        gold, inset = prog.gold_a(state, 1)
+        sa = stream_shard.shard_state(state["a"], g)
+        sb = stream_shard.shard_state(state["b"], g)
+        single = prog.run_pairs(state, 1)["a"]
+        kernels.reset_launches()
+        spair(sa, sb)
+        launches = kernel.launches
+        copies, copied = g.exchange.copies, g.exchange.bytes
+        H, local = g.halo, g.local_rows
+        sharded = real_rows(sa, g)
+        ghosts_zero = not (sa[0][:H].any() or sa[-1][H + local:].any()
+                           or sb[0][:H].any() or sb[-1][H + local:].any())
+        line = {"stencil": name, "cfg": cfg.label(), "dims": list(spec.dims),
+                "dtype": dtype, "shards": N_SHARDS,
+                "devices": [str(d) for d in mesh.devices],
+                "launches": launches}
+        if dtype == "float32":
+            line["vs_single"] = relative_diff(sharded, single)
+            same = line["vs_single"] <= SHARD_TOL
+        else:
+            same = within_tolerance(sharded, single, dtype, line)
+        line["cells_differing_from_single"] = int((sharded != single).sum())
+        line["vs_gold"] = relative_diff(sharded, gold, inset)
+        model = stream_shard.halo_traffic_model(
+            prog.an, cfg.step, N_SHARDS, itemsize=prog.dtype.itemsize)
+        line["copies_per_pair"], line["bytes_per_pair"] = copies, copied
+        line["model_bytes_per_apply"] = model["bytes_per_apply_mesh"]
+        del gold, sharded, single
+        line["single_ms_per_pair"] = time_pairs(
+            prog.pair_fn(), state["a"], state["b"])
+        line["sharded_ms_per_pair"] = time_pairs(spair, sa, sb, mesh.devices)
+        line["same_after_timed_pairs"] = same_cells(real_rows(sa, g),
+                                                    state["a"])
+        line["exchange_us"] = time_exchange(g, sa, mesh.devices)
+        line["copy_us"] = line["exchange_us"] / model["copies_per_apply_mesh"]
+        print("sharded " + json.dumps(line))
+        report["sharded"].append(line)
+        if not (same and ghosts_zero and line["same_after_timed_pairs"]
+                and line["vs_gold"] <= DEVICE_CHECK_TOL[dtype]
+                and launches == 2 * N_SHARDS
+                and copies == 2 * model["copies_per_apply_mesh"]
+                and copied == 2 * model["bytes_per_apply_mesh"]):
+            raise RuntimeError(f"{name} {dtype}: sharded main path failed "
+                               f"(ghosts zero: {ghosts_zero}): {line}")
+        del prog, sa, sb, state
+        torch.cuda.empty_cache()
+        return line
+
+    def time_exchange(g, slabs, devices):
+        """Mean µs of one halo exchange (all its copies) over 20 calls."""
+        if len(set(devices)) == 1:
+            return cuda_ms(torch, lambda: g.exchange(slabs), 20) * 1e3
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            g.exchange(slabs)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        return (time.perf_counter() - t0) / 20 * 1e6
+
+    def weak_scaling(name, single_ms_per_pair):
+        """Weak scaling MEASURED on ``--mesh-devices``: every card keeps the
+        full .stc problem (the global grid is ``N_SHARDS`` times as long on
+        axis 0, random state made on each card), timed like the
+        single-device program of :func:`sharded_main_path`."""
+        spec, cfg = specs[name], best_config(name)
+        big = StencilSpec(spec.name, (spec.dims[0] * N_SHARDS,)
+                          + tuple(spec.dims[1:]), spec.iterations, spec.taps)
+        mesh = halo.make_mesh(N_SHARDS, devices=mesh_devices)
+        spair, g = stream_shard.sharded_stream_pair(big, cfg, mesh)
+        H, local = g.halo, g.local_rows
+        sa, sb = [], []
+        for d in mesh.devices:
+            a = torch.zeros(g.slab_dims, dtype=g.dtype, device=d)
+            a[H:H + local] = torch.rand((local,) + tuple(spec.dims[1:]),
+                                        device=d) * 100.0
+            sa.append(a)
+            sb.append(torch.zeros_like(a))
+        ms = time_pairs(spair, sa, sb, mesh.devices)
+        line = {"stencil": name, "cfg": cfg.label(), "dims": list(big.dims),
+                "devices": [str(d) for d in mesh.devices],
+                "single_ms_per_pair": single_ms_per_pair,
+                "weak_ms_per_pair": ms,
+                "weak_scaling_efficiency": single_ms_per_pair / ms,
+                "exchange_us": time_exchange(g, sa, mesh.devices)}
+        print("weak-scaling measured " + json.dumps(line))
+        report["weak_scaling_measured"].append(line)
+        del sa, sb
+        torch.cuda.empty_cache()
+        return line
+
+    def sharded_phase():
+        """Phase 11: every winner in fp32, ``shard_names`` in bf16, then the
+        weak-scaling MODEL on this run's single-device times and copy
+        time.  Returns the fp32 and the bf16 lines by stencil."""
+        fp32 = {n: sharded_main_path(n, "float32") for n in names}
+        bf16 = {n: sharded_main_path(n, "bfloat16") for n in shard_names}
+        copy_s = float(np.median([x["copy_us"] for x in fp32.values()])) / 1e6
+        model_rows = winner_rows(
+            N_SHARDS, latency_s=copy_s,
+            ms_per_step={n: x["single_ms_per_pair"]
+                         / (2 * best_config(n).step)
+                         for n, x in fp32.items()})
+        report["weak_scaling_model"] = [m for m in model_rows
+                                        if m["name"] in fp32]
+        for m in report["weak_scaling_model"]:
+            print("weak-scaling model (not measured) " + json.dumps(m))
+        return fp32, bf16
+
+    def dryrun_phase():
+        """Phase 13: ``dryrun_multichip`` on the mesh's devices."""
+        kernels.reset_launches()
+        dry = entry_mod.dryrun_multichip(N_SHARDS, devices=mesh_devices)
+        for d in set(mesh_devices):
+            torch.cuda.synchronize(d)
+        dry["launches"] = kernels.stencil2d_levels_shard.launches
+        print("dryrun " + json.dumps(dry))
+        report["dryrun"] = dry
+        if dry["launches"] != 2 * N_SHARDS:
+            raise RuntimeError(f"dryrun_multichip launched {dry['launches']} "
+                               f"shard kernels, expected {2 * N_SHARDS}")
+
+    def write_report():
+        os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+        path = os.path.join(kernels.BUILD_DIR, "chip_smoke.json")
+        with open(path, "w") as fh:
+            json.dump(report, fh, indent=1)
+
+    def ok_line():
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+
+    def multi_device_only():
+        """``--mesh-devices``: phases 11 and 13 on several cards, and weak
+        scaling measured there."""
+        fp32, _ = sharded_phase()
+        for name in names:
+            weak_scaling(name, fp32[name]["single_ms_per_pair"])
+        dryrun_phase()
+        write_report()
+        print(smi)
+        ok_line()
+        return 0
+
+    def factor_main_path(name, step, dtype, row):
+        """``StencilProgram`` in factor mode at the .stc size: time() and
+        device_check(pairs=1), launches counted from 0 around them, beside
+        the unfactored trapezoid of the same step."""
+        spec = specs.get(name) or load_stc(os.path.join(bench, name + ".stc"))
+        cfg = KernelConfig(step=step, factor=True, dtype=dtype)
+        prog = StencilProgram(spec, cfg)
+        kernels.reset_launches()
+        res = prog.time(warmup_pairs=1, pairs=PAIRS)
+        diff = prog.device_check(pairs=1)
+        launches = kernels.stencil2d_factor_levels.launches
+        row["launches"] = launches
+        other = StencilProgram(spec, KernelConfig(
+            step=step, trapezoid=step > 1, dtype=dtype))
+        unfactored = other.time(warmup_pairs=1, pairs=PAIRS)
+        line = {"stencil": name, "cfg": cfg.label(), "dtype": dtype,
+                "ms_per_step": res.seconds_per_pair * 1e3 / (2 * step),
+                "unfactored_cfg": other.cfg.label(),
+                "unfactored_ms_per_step":
+                    unfactored.seconds_per_pair * 1e3 / (2 * step),
+                "max_dev_diff": diff, "launches": launches}
+        print("factor " + json.dumps(line))
+        report["factor"].append(line)
+        if launches <= 0 or not diff <= DEVICE_CHECK_TOL[dtype]:
+            raise RuntimeError(f"{name} factor step {step} {dtype} failed: "
+                               f"{line}")
+        del prog, other
+        torch.cuda.empty_cache()
 
     def main_path(name, dtype, rows):
         """``StencilProgram`` on ``name``'s winner in ``dtype``: time(),
@@ -289,6 +624,9 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{name} {dtype}: fp64 golden check failed "
                                f"{line}")
 
+    if args.mesh_devices:
+        return multi_device_only()
+
     # -- 2. each kernel against its plain version ---------------------------
     kernel_rows = {n: kernel_row(n, "float32") for n in names}
 
@@ -300,32 +638,31 @@ def main(argv=None) -> int:
     for name in names:
         golden(name, "float32")
 
-    # -- 5. the graft entry's config ----------------------------------------
+    # -- 5. the entry point ---------------------------------------------------
+    pair, (a, b) = entry_mod.entry()
     base = load_stc(os.path.join(bench, "2d5pt_star.stc"))
-    spec = StencilSpec(base.name, GRAFT_DIMS, base.iterations, base.taps)
+    spec = StencilSpec(base.name, tuple(a.shape), base.iterations, base.taps)
     cfg = KernelConfig(variant="stream", step=1, tm=128)
-    an = analyze(spec, cfg.step)
-    f = build_stream_kernel(an, cfg)
-    gold = xla_ref.apply_interior(an)
-    prog = StencilProgram(spec, cfg)
-    state = prog.init_state(0)
-    a = state["a"]
-    got, want = state["b"].clone(), state["b"].clone()
+    gold = xla_ref.apply_interior(analyze(spec, cfg.step))
+    ga, gb = a.clone(), b.clone()
     kernels.reset_launches()
-    f(a, got)
-    gold(a, want)
+    pair(a, b)
+    gold(ga, gb)
+    gold(gb, ga)
     torch.cuda.synchronize()
-    graft_rel = float((got - want).abs().max() / want.abs().max())
-    max_err, rms = prog.check()
+    graft_rel = relative_diff(a, ga)
+    max_err, rms = StencilProgram(spec, cfg).check()
     graft = {"stencil": "2d5pt_star", "cfg": cfg.label(),
-             "dims": list(GRAFT_DIMS), "rel_vs_gold": graft_rel,
+             "dims": list(a.shape), "rel_vs_gold": graft_rel,
              "golden_max_err": max_err, "golden_rms": rms,
              "launches": kernels.stencil2d_levels.launches}
     print("graft " + json.dumps(graft))
     report["graft"] = graft
-    if not (graft["launches"] >= 1 and graft_rel <= KERNEL_TOL
+    if not (graft["dims"] == list(GRAFT_DIMS) and graft["launches"] >= 2
+            and graft_rel <= KERNEL_TOL
             and max_err < MAX_TOL and rms < RMS_TOL):
-        raise RuntimeError(f"graft entry config failed: {graft}")
+        raise RuntimeError(f"entry() failed: {graft}")
+    del a, b, ga, gb
 
     # -- 6. the bf16 builds against their plain version ----------------------
     bf16_rows = {n: kernel_row(n, "bfloat16") for n in names}
@@ -342,23 +679,45 @@ def main(argv=None) -> int:
     report["tuner"] = tune_phase(
         torch, Tuner, tuned_mod, session_mod, bench, specs)
 
-    # -- 10. result lines ----------------------------------------------------
+    # -- 10. the shard-local kernels against their plain version -------------
+    shard_rows = {dt: {n: shard_kernel_row(n, dt) for n in shard_names}
+                  for dt in ("float32", "bfloat16")}
+
+    # -- 11. the sharded main path at the .stc size ---------------------------
+    for dt, lines in zip(shard_rows, sharded_phase()):
+        for name in shard_names:
+            shard_rows[dt][name]["launches"] = lines[name]["launches"]
+
+    # -- 12. factor mode -------------------------------------------------------
+    factor_rows = []
+    for name in FACTOR_STENCILS:
+        for step in FACTOR_STEPS:
+            for dt in ("float32", "bfloat16"):
+                row = factor_kernel_row(name, step, dt)
+                factor_main_path(name, step, dt, row)
+                factor_rows.append(row)
+
+    # -- 13. the multi-device dry run -------------------------------------------
+    dryrun_phase()
+
+    # -- 14. result lines ----------------------------------------------------
     if sha256(tuned_json) != tuned_sha:
         raise RuntimeError("benchmarks/tuned.json changed during the run")
     keys = ("name", "stencil", "dtype", "route", "source", "replaces",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    all_rows = [kernel_rows[n] for n in names] + [bf16_rows[n] for n in names]
+    all_rows = ([kernel_rows[n] for n in names] + [bf16_rows[n] for n in names]
+                + [shard_rows[dt][n] for dt in shard_rows for n in shard_names]
+                + factor_rows)
+    idle = [r["name"] for r in all_rows if r["launches"] <= 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on their path: {idle}")
     report["kernels"] = all_rows
-    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
-    with open(os.path.join(kernels.BUILD_DIR, "chip_smoke.json"), "w") as fh:
-        json.dump(report, fh, indent=1)
+    write_report()
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in all_rows]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+    ok_line()
     return 0
 
 

@@ -5,12 +5,17 @@ The same stencil-compiler framework, run on an NVIDIA Hopper GPU:
 - the ``.stc`` front-end and the analysis passes (temporal fusion,
   data-reuse partition, halo analysis) live in :mod:`drstencil_tpu_torch.ir`,
   pure Python copies of the JAX package's modules;
-- the streaming stencil kernel of ``drstencil_tpu.ops.stream`` becomes two
+- the streaming stencil kernel of ``drstencil_tpu.ops.stream`` becomes
   hand-written CUDA kernels (``csrc/stencil.cu``, bound in
   :mod:`drstencil_tpu_torch.ops.kernels`): a temporally blocked tile in
-  shared memory that never writes a frame cell, one for 2D and one for 3D;
+  shared memory that never writes a frame cell, one for 2D and one for 3D,
+  with shard-local entries for the multi-device path and a factor-mode
+  kernel for 2D radius-2 operators;
 - :mod:`drstencil_tpu_torch.ops.runner` runs the warmup, timed ping-pong
-  and golden-check protocol on torch tensors.
+  and golden-check protocol on torch tensors;
+- :mod:`drstencil_tpu_torch.parallel` decomposes the grid over a mesh of
+  devices with halo exchange, and :mod:`drstencil_tpu_torch.entry` holds
+  the single-device and multi-device entry points.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``,
 where every kernel is replaced by its plain PyTorch version.

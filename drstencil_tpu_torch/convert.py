@@ -5,6 +5,9 @@ fields and numpy arrays: a JAX ``StencilSpec`` as its fields, a
 ``KernelConfig`` as its dict, and ping-pong state as the JAX side's
 real-shaped arrays (already unpadded by its ``unpad_state``).  A bfloat16
 state crosses through float32, which holds every bfloat16 value exactly.
+A sharded state crosses as the global array: each package splits it into
+its own shards (the JAX side's ``stream_shard.shard_state`` into padded
+tall buffers, the port's into ghosted slabs) and joins them back.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from drstencil_tpu_torch.ir.spec import StencilSpec
 from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.ops.stream import resolve_device, state_dtype
+from drstencil_tpu_torch.parallel import stream_shard
 
 
 def spec_from_fields(name: str, dims, iterations: int, taps) -> StencilSpec:
@@ -46,3 +50,19 @@ def state_to_numpy(state: dict, dtype=np.float32) -> tuple:
     (``jnp.asarray(x, jnp.bfloat16)``) bit for bit."""
     return tuple(state[k].detach().to("cpu", torch.float32, copy=True)
                  .numpy().astype(dtype, copy=False) for k in ("a", "b"))
+
+
+def sharded_state_from_numpy(a: np.ndarray, b: np.ndarray, g) -> dict:
+    """Sharded ping-pong state ``{"a", "b"}`` for the geometry ``g`` of
+    ``parallel.stream_shard.build_sharded_stream``: each global real-shaped
+    numpy array split into ghosted slabs of ``g.dtype`` on ``g.mesh``'s
+    devices (through float32, as :func:`state_from_numpy`)."""
+    return {k: stream_shard.shard_state(np.asarray(x, dtype=np.float32), g)
+            for k, x in (("a", a), ("b", b))}
+
+
+def sharded_state_to_numpy(state: dict, g, dtype=np.float32) -> tuple:
+    """(a, b) as global real-shaped numpy arrays joined from the sharded
+    state's slabs, cast to the numpy ``dtype``."""
+    return tuple(stream_shard.unshard_state(state[k], g)
+                 .astype(dtype, copy=False) for k in ("a", "b"))

@@ -16,8 +16,10 @@ the TPU's Mosaic pipeline; on Hopper they mean:
   ``vfuse`` as in the JAX package, so both reject the same configs;
 - ``vfuse``: the same kernel as the scratch trapezoid (levels chain
   through shared memory either way);
-- ``factor=True``: raises ``NotImplementedError`` (the factored levels
-  come in a later slice);
+- ``factor=True``: a 2D radius-2 operator runs as ``2 * step`` levels of
+  its 3x3 factors V1 and V2 plus the residual read two levels back
+  (``ir/factor.py``, kernel ``stencil2d_factor_levels``); other tables
+  and 3D grids are rejected with the JAX package's messages;
 - ``dtype``: the state's storage type, ``"float32"`` or ``"bfloat16"``.
   Both run through the same kernels' fp32 or bf16 builds; either way every
   level is computed in fp32 and rounded to the state's type once per

@@ -7,10 +7,14 @@ frozen frame of width ``H = an.halo`` on every axis:
 
 - ``L = 1``: the coefficient-fused operator ``an.fused`` (K1);
 - ``L = step``: the base taps (trapezoids K2, K3 and K4);
-- ``L = step / block``: ``fuse(base, block)`` (block-hybrid K7).
+- ``L = step / block``: ``fuse(base, block)`` (block-hybrid K7);
+- factor mode (K6): ``2 * step`` levels alternating the 3x3 factors V1 and
+  V2 of a 2D radius-2 operator, each V2 level adding the residual R read
+  from the level two back (``ir/factor.py``).
 
 Here that becomes a level schedule (:func:`level_plan`) handed to one of
-two CUDA kernels (``ops/kernels.py``).  The TPU geometry — tall layout,
+the CUDA kernels of ``ops/kernels.py``.  ``row_frame=False`` (K8) builds
+the shard-local function of the multi-device path on a ghosted slab.  The TPU geometry — tall layout,
 padding, strips, frame slabs — has no counterpart; only its rejection
 rules and the config checks are kept, so that both packages accept and
 reject the same configurations.
@@ -21,10 +25,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from drstencil_tpu_torch.ir.factor import factor_tap_lists
 from drstencil_tpu_torch.ir.passes import Analysis, fuse
 from drstencil_tpu_torch.ops import kernels
 from drstencil_tpu_torch.ops.config import KernelConfig
-from drstencil_tpu_torch.ops.kernels import LevelTaps
+from drstencil_tpu_torch.ops.kernels import FactorTaps, LevelTaps
 
 # trapezoid depth the JAX package compiles as a fori_loop; kept for
 # vfuse's rejection rule and device_check's deep gold
@@ -117,9 +122,38 @@ def _lane_padded(an: Analysis, cfg: KernelConfig) -> bool:
     return cfg.lane_mode == "slice" or (cfg.lane_mode is None and n >= 2048)
 
 
-def level_plan(an: Analysis, cfg: KernelConfig) -> LevelTaps:
+def _factor_table(tap_list):
+    """A ``factor_tap_lists`` list as (offsets (n, 2) int32, coeffs (n,)
+    float32), order kept."""
+    return (np.array([(d, s) for d, s, _ in tap_list], dtype=np.int32),
+            np.array([c for _, _, c in tap_list], dtype=np.float32))
+
+
+def factor_plan(an: Analysis) -> FactorTaps:
+    """Factor mode's schedule (stream.py:459-474): ``2 * step`` levels of
+    reach ``H / (2 * step)`` alternating V1 and V2, with the residual R on
+    every V2 level; the JAX package's rejections word for word."""
+    if len(an.spec.dims) != 2:
+        raise ValueError("factor mode is 2D-only")
+    if an.step >= DEEP_LEVELS:
+        raise ValueError("factor mode requires step < DEEP_LEVELS")
+    fac = factor_tap_lists(an.spec.taps)
+    if fac is None:
+        raise ValueError(
+            "no well-conditioned radius-2 factorization for this table"
+        )
+    levels = 2 * an.step
+    reach = an.halo // levels
+    assert reach * levels == an.halo, "fused halo must be 2*step*factor reach"
+    v1, v2, r = (_factor_table(t) for t in fac)
+    return FactorTaps(v1=v1, v2=v2, r=r, levels=levels, reach=reach,
+                      frame=an.halo)
+
+
+def level_plan(an: Analysis, cfg: KernelConfig):
     """The level schedule of one application (stream.py:452-507): which
-    tap table, how many levels, and each level's reach ``H / L``."""
+    tap table, how many levels, and each level's reach ``H / L`` — a
+    ``LevelTaps``, or a ``FactorTaps`` for ``cfg.factor``."""
     check_geometry(an)
     state_dtype(cfg.dtype)
     s_levels = n_levels(an, cfg)
@@ -127,12 +161,12 @@ def level_plan(an: Analysis, cfg: KernelConfig) -> LevelTaps:
         raise ValueError("block > 1 requires trapezoid with step > 1")
     if cfg.block > 1 and cfg.factor:
         raise ValueError("block > 1 is incompatible with factor mode")
-    if cfg.factor:
-        raise NotImplementedError(
-            "factor mode (factored V1/V2 levels) is not ported yet")
+    plan = factor_plan(an) if cfg.factor else None
     if cfg.vfuse:
         if not (cfg.trapezoid and an.step > 1):
             raise ValueError("vfuse requires trapezoid with step > 1")
+        if cfg.factor:
+            raise ValueError("vfuse is incompatible with factor mode")
         if s_levels >= DEEP_LEVELS:
             raise ValueError("vfuse requires levels < DEEP_LEVELS")
         if _lane_padded(an, cfg):
@@ -140,6 +174,8 @@ def level_plan(an: Analysis, cfg: KernelConfig) -> LevelTaps:
                 "vfuse requires roll lane-mode (pc=0): slice-mode inners "
                 "are width N, but chained levels need width-wb inputs"
             )
+    if plan is not None:
+        return plan
     if s_levels == 1:
         taps = an.fused
     elif cfg.block > 1:
@@ -159,21 +195,37 @@ def level_plan(an: Analysis, cfg: KernelConfig) -> LevelTaps:
                      reach=reach, frame=h)
 
 
-def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None):
+def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
+                        row_frame: bool = True):
     """Build ``f(src, dst)``: one application of the fused operator.
 
     ``f`` writes the interior ``[H, dim - H)`` of ``dst`` in place from
     ``src`` and leaves ``dst``'s frame untouched; it returns ``dst``.
     Both are real-shaped contiguous tensors of ``cfg.dtype`` on ``device``
     (``None`` = CUDA; ``"cpu"`` runs the kernels' plain versions).
+
+    ``row_frame=False`` builds the shard-local function of the multi-device
+    path (``parallel/stream_shard.py``), ``f(src, dst, rows)``: ``an`` is
+    the analysis of one shard's slab, ``src`` and ``dst`` are that slab with
+    ``H`` ghost rows (planes in 3D) on each side of axis 0, and ``rows`` is
+    the ``(lo, hi)`` range of axis 0, in slab coordinates, that ``f``
+    stores: every local row for an interior shard, all but the global frame
+    for a shard at the edge of the mesh.  The off-axis frame stays frozen.
     """
     device = resolve_device(device)
     plan = level_plan(an, cfg)
     dtype = state_dtype(cfg.dtype)
-    kernel = kernels.kernel_for(len(an.spec.dims))
     dims = tuple(an.spec.dims)
+    if kernels.is_factor(plan):
+        if not row_frame:
+            raise ValueError("factor mode has no shard-local build")
+        kernel = kernels.stencil2d_factor_levels
+    else:
+        kernel = kernels.kernel_for(len(dims), shard=not row_frame)
+    if not row_frame:
+        dims = (dims[0] + 2 * plan.frame,) + dims[1:]
 
-    def f(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    def f(src: torch.Tensor, dst: torch.Tensor, *rows) -> torch.Tensor:
         if src.device != device or dst.device != device:
             raise ValueError(f"tensors on {src.device}/{dst.device}, "
                              f"kernel built for {device}")
@@ -182,6 +234,6 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None):
         if src.dtype != dtype or dst.dtype != dtype:
             raise TypeError(f"tensors of {src.dtype}/{dst.dtype}, kernel "
                             f"built for {dtype}")
-        return kernel(src, dst, plan)
+        return kernel(src, dst, plan, *rows)
 
     return f

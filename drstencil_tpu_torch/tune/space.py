@@ -62,11 +62,12 @@ def smem_estimate(spec: StencilSpec,
         an = analyze(spec, step=cfg.step, distance=cfg.distance,
                      merge_forward=cfg.merge_forward)
         plan = stream_mod.level_plan(an, cfg)
-        tile = kernels.tile_shape(spec.ndim, plan.frame, plan.levels)
-    except (ValueError, NotImplementedError):  # AnalysisError included
+        factor = kernels.is_factor(plan)
+        tile = kernels.tile_shape(spec.ndim, plan.frame, plan.levels, factor)
+    except ValueError:  # AnalysisError included
         return None
     return Candidate(cfg=cfg, tile=tile, smem_bytes=kernels.smem_bytes(
-        tile, plan.frame, kernels.n_buffers(plan.levels)))
+        tile, plan.frame, kernels.n_buffers(plan.levels, factor)))
 
 
 def _step_distance(spec: StencilSpec, step: int) -> Optional[int]:
@@ -92,7 +93,9 @@ def _step_distance(spec: StencilSpec, step: int) -> Optional[int]:
 
 def default_space(spec: StencilSpec) -> Iterator[Candidate]:
     """Valid candidates for one stencil: per step, the streaming kernel's
-    (trapezoid, block) modes in fp32, the bf16 slab, and the xla gold."""
+    (trapezoid, block) modes in fp32, the bf16 slab, and the xla gold.
+    Factor mode stays an opt-in config (``KernelConfig.factor``) that the
+    space does not sweep, as in the JAX package."""
     is3d = spec.ndim == 3
     order = order_of(spec.taps)
     seen = set()

@@ -78,7 +78,8 @@ class TrafficModel:
     tile of every CTA read, the interior written.  ``bound_bytes`` is the
     least the function needs: each input cell read once and each output
     cell written once (2 · item · cells).  ``flops`` is 2 · taps · levels
-    · cells, fp32 FMAs on the CUDA cores whatever the storage dtype."""
+    · cells (factor mode: 2 · (|V1| + |V2| + |R|) · step · cells), fp32
+    FMAs on the CUDA cores whatever the storage dtype."""
 
     read_bytes: int
     write_bytes: int
@@ -113,7 +114,10 @@ def traffic_model(an: Analysis, cfg: KernelConfig) -> TrafficModel:
     item = stream_mod.state_dtype(cfg.dtype).itemsize
     dims = tuple(an.spec.dims)
     ndim, H = len(dims), plan.frame
-    tile = kernels.tile_shape(ndim, H, plan.levels)
+    factor = kernels.is_factor(plan)
+    tile = kernels.tile_shape(ndim, H, plan.levels, factor)
+    taps_per_cell = (plan.taps_per_step * an.step if factor
+                     else len(plan.coeffs) * plan.levels)
     ctas = int(np.prod([-(-d // t) for d, t in zip(dims, tile)]))
     haloed = int(np.prod([t + 2 * H for t in tile]))
     cells = int(np.prod(dims))
@@ -122,6 +126,7 @@ def traffic_model(an: Analysis, cfg: KernelConfig) -> TrafficModel:
         read_bytes=ctas * haloed * item,
         write_bytes=interior * item,
         bound_bytes=2 * item * cells,
-        flops=2 * len(plan.coeffs) * plan.levels * cells,
-        smem_bytes=kernels.smem_bytes(tile, H, kernels.n_buffers(plan.levels)),
+        flops=2 * taps_per_cell * cells,
+        smem_bytes=kernels.smem_bytes(
+            tile, H, kernels.n_buffers(plan.levels, factor)),
     )

@@ -196,7 +196,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {f"drstencil_tpu_torch/tune/{m}.py" for m in (
         "space", "tuner", "worker", "session", "finalists", "report")} <= rel
     assert "drstencil_tpu_torch/utils/profiling.py" in rel
-    assert len(files) >= 19
+    # ... and factor mode, the multi-device path and the entry points
+    assert {"drstencil_tpu_torch/ir/factor.py",
+            "drstencil_tpu_torch/entry.py"} <= rel
+    assert {f"drstencil_tpu_torch/parallel/{m}.py" for m in (
+        "__init__", "halo", "stream_shard", "model")} <= rel
+    assert len(files) >= 25
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

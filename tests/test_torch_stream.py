@@ -143,12 +143,14 @@ def test_rejections_match_jax(taps, jcfg, match):
 
 
 def test_factor_and_bf16_not_ported():
-    """Factor mode is still to port and raises; bf16 state is ported and
-    plans the same levels as fp32 (tests/test_torch_bf16.py)."""
+    """Both are ported now (the name is kept): factor mode plans 2*step
+    levels of the factored tables (tests/test_torch_factor.py), and bf16
+    state plans the same levels as fp32 (tests/test_torch_bf16.py)."""
     spec, _ = to_port(small_spec("2d9pt_star"), JConfig())
     an = tpasses.analyze(spec, 2)
-    with pytest.raises(NotImplementedError, match="factor"):
-        tstream.level_plan(an, TConfig(step=2, factor=True))
+    plan = tstream.level_plan(an, TConfig(step=2, factor=True))
+    assert isinstance(plan, kernels.FactorTaps)
+    assert (plan.levels, plan.reach, plan.frame) == (4, 1, an.halo)
     bf16 = tstream.level_plan(an, TConfig(step=2, dtype="bfloat16"))
     assert bf16.levels == tstream.level_plan(an, TConfig(step=2)).levels
 

@@ -162,10 +162,16 @@ def test_smem_estimate_filter():
     # buffers exceed 227 KB
     assert space.smem_estimate(
         spec, KernelConfig(step=8, trapezoid=True)) is None
-    # factor mode is not ported: rejected, not raised
+    # factor mode is 2D-only: rejected, not raised
     assert space.smem_estimate(
         spec, KernelConfig(step=2, factor=True)) is None
     box = load_stc(os.path.join(BENCH_DIR, "2d25pt_box.stc"))
+    # on a 2D radius-2 table it is valid: three tiles of the haloed tile
+    cand = space.smem_estimate(box, KernelConfig(step=2, factor=True))
+    assert cand.tile == (32, 64)
+    assert cand.smem_bytes == 3 * 4 * (32 + 8) * (64 + 8)
+    # ... and still not swept by the default space
+    assert not any(c.cfg.factor for c in space.default_space(box))
     # coefficient fusion at step 6: 625 taps per level > MAX_TAPS
     assert space.smem_estimate(box, KernelConfig(step=6)) is None
     cand = space.smem_estimate(box, KernelConfig(step=6, trapezoid=True))
