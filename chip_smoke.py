@@ -5,6 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py                      # every tuned stencil
     python3 chip_smoke.py --stencils 2d5pt_star,3d7pt_star
+    python3 chip_smoke.py --from-phase 14      # phases 14-16 alone (partial)
     python3 chip_smoke.py --mesh-devices cuda:0,cuda:1,cuda:2,cuda:3
                                   # four cards: phases 11 and 13 with one shard
                                   # per card, and weak scaling measured
@@ -55,7 +56,27 @@ It builds the CUDA kernels from ``drstencil_tpu_torch/csrc`` (nvcc, into
     factor=True))``: ``time()`` and ``device_check`` beside the unfactored
     trapezoid of the same step;
 13. ``dryrun_multichip(4, devices=["cuda:0"] * 4)``;
-14. one ``{"kernels": [...]}`` line (every kernel, fp32 and bf16 rows), the
+14. emitted programs: ``python -m drstencil_tpu_torch.cli`` emits one
+    standalone program per tuned winner at the ``.stc`` size in fp32, and
+    per ``SHARD_STENCILS`` winner in bf16; their specialised kernels are
+    built (one ``nvcc`` each, all started together) and held against the
+    emitted plain version (<= 1e-5; bf16 <= 1 ulp) and against the library
+    kernel (<= 1e-6; bf16 <= 1 ulp; differing cells counted), timed in
+    turns with the library kernel, and every program's ``main()`` runs a
+    few pairs at full size (its launches counted).  Then five programs run
+    end to end as their own processes at a reduced size: a 2D trapezoid, a
+    3D fused level and a bf16 program with ``--check`` (the fp64 golden
+    tolerances), a ``--shard 4`` program on four shards of the one card,
+    and a ``--gold`` program;
+15. the plain-tile experiment: ``tile2d_fused`` against its plain version
+    on the whole padded buffer at 8192² for every row of its ``SWEEP``
+    (pad rows bit-unchanged), timed beside a cuDNN convolution; then the
+    experiment itself (tile ms/step, the port's winner ms/step, ratio);
+16. the overlap probe: ``overlap_probe`` A/B/C x depth 1/2 at 8192²
+    against its plain version on the written rows (the others
+    bit-unchanged), then the experiment (ms/sweep beside the bytes time
+    and the compute-only time);
+17. one ``{"kernels": [...]}`` line (every kernel, fp32 and bf16 rows), the
     card line, then the ok line.
 
 Details also go to ``build/chip_smoke.json``.  ``benchmarks/tuned.json``
@@ -104,6 +125,14 @@ PAIRS = 4
 TUNE_STENCILS = ("2d5pt_star", "3d7pt_star")
 TUNE_PAIRS = 4
 TUNE_TIMEOUT_S = 300.0
+# phase 14: emitted kernel vs the library kernel, fp32 (the same fmaf
+# sequence on the same values, so 0 differing cells is expected)
+EMIT_TOL = 1e-6
+# phase 14: pairs and warmup pairs of a program's main() at full size, and
+# of the programs run as their own processes at the reduced size
+EMIT_PAIRS, EMIT_WARMUP = 2, 1
+RUN_PAIRS, RUN_WARMUP = 1, 1
+EMIT_TIMEOUT_S = 300.0
 
 
 def nvidia_smi_line() -> str:
@@ -129,6 +158,13 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def print_ptxas(log: str, prefix: str = "") -> None:
+    """The registers, spills and entry names of an nvcc ``-Xptxas -v`` log."""
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"  ptxas{prefix}: {line.strip()}")
+
+
 def bf16_ulp(torch, x):
     """One bf16 ulp of each value of the bf16 tensor ``x`` (as fp32): for
     |x| in [2^(e-1), 2^e) the 8-bit significand gives 2^(e-8); 0 for 0."""
@@ -152,6 +188,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from drstencil_tpu_torch import cli as cli_mod
     from drstencil_tpu_torch import entry as entry_mod
     from drstencil_tpu_torch.ir.passes import analyze
     from drstencil_tpu_torch.ir.spec import StencilSpec, load_stc
@@ -166,6 +203,7 @@ def main(argv=None) -> int:
     from drstencil_tpu_torch.tune.tuned import (
         best_config, card_peaks, naive_sol_gstencil, tuned_entries)
     from drstencil_tpu_torch.tune.tuner import Tuner
+    from drstencil_tpu_torch.tuning import exp_overlap, exp_tile2d
     from drstencil_tpu_torch.utils.profiling import traffic_model
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -176,6 +214,10 @@ def main(argv=None) -> int:
                          "the multi-device phases (11 and 13) with the mesh "
                          "on them, and measure weak scaling; the default "
                          f"mesh names cuda:0 {N_SHARDS} times")
+    ap.add_argument("--from-phase", type=int, default=2, choices=[2, 10, 14],
+                    help="skip the phases before this one (a partial run, "
+                         "to try a later phase alone: it prints no result "
+                         "lines)")
     args = ap.parse_args(argv)
     mesh_devices = (args.mesh_devices.split(",") if args.mesh_devices
                     else ["cuda:0"] * N_SHARDS)
@@ -196,17 +238,19 @@ def main(argv=None) -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    lib = kernels.build()
-    print(f"kernels built in {lib.build_seconds:.1f}s -> "
-          f"{os.path.relpath(lib.path, ROOT)}")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    libs = kernels.build()
+    build_seconds = time.perf_counter() - t0
+    for lib in libs:
+        print(f"kernels built in {lib.build_seconds:.1f}s -> "
+              f"{os.path.relpath(lib.path, ROOT)}")
+        print_ptxas(lib.build_log)
     report = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
-              "build_seconds": lib.build_seconds, "kernels": [],
+              "build_seconds": build_seconds, "kernels": [],
               "main_path": [], "golden": [], "sharded": [], "factor": [],
-              "weak_scaling_measured": []}
+              "weak_scaling_measured": [], "emitted": [], "emitted_runs": [],
+              "tile2d": [], "overlap": []}
 
     specs = {n: load_stc(os.path.join(bench, n + ".stc")) for n in names}
     shard_names = [n for n in SHARD_STENCILS if n in specs]
@@ -624,83 +668,472 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{name} {dtype}: fp64 golden check failed "
                                f"{line}")
 
+    # -- phases 14-16: helpers ------------------------------------------------
+    emit_dir = os.path.join(kernels.BUILD_DIR, "chip_smoke_emitted")
+
+    def cli_flags(cfg):
+        """``cfg`` as the compiler CLI's flags."""
+        flags = ["--step", str(cfg.step), "--dist", str(cfg.distance),
+                 "--merge-forward", str(cfg.merge_forward),
+                 "--bx", str(cfg.tm or 0), "--ch", str(cfg.ch or 0),
+                 "--dtype", cfg.dtype, "--block", str(cfg.block),
+                 "--jfix", cfg.jfix, "--prefetch", str(cfg.prefetch)]
+        if cfg.lane_mode:
+            flags += ["--lane-mode", cfg.lane_mode]
+        for flag, on in (("--trapezoid", cfg.trapezoid),
+                         ("--vfuse", cfg.vfuse)):
+            if on:
+                flags.append(flag)
+        return flags
+
+    def load_program(path):
+        """An emitted program as a module (its ``__file__`` places its
+        build directory)."""
+        import importlib.util
+
+        mspec = importlib.util.spec_from_file_location(
+            "emitted_" + hashlib.sha256(path.encode()).hexdigest()[:12], path)
+        mod = importlib.util.module_from_spec(mspec)
+        mspec.loader.exec_module(mod)
+        return mod
+
+    def emitted_row(mod, name, dtype, library_row):
+        """One emitted program at the .stc size: its kernel against its
+        emitted plain version and against the library kernel on the same
+        input, timed in turns with the library kernel (library, emitted,
+        emitted, library), then its ``main()`` for a few pairs."""
+        spec, cfg = specs[name], best_config(name).replace(dtype=dtype)
+        an = analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
+        plan = level_plan(an, cfg)
+        tdt = state_dtype(dtype)
+        kernel = mod.build_call(dev)        # built already: a cache hit
+        libk = kernels.kernel_for(spec.ndim)
+        src = (torch.rand(tuple(spec.dims), generator=gen, device=dev)
+               * 100.0).to(tdt)
+        got, want, lib_out = (torch.zeros_like(src) for _ in range(3))
+        kernel(src, got)
+        mod.plain_apply(src, want)
+        libk(src, lib_out, plan)
+        torch.cuda.synchronize()
+        row = {"name": f"emitted_stencil{spec.ndim}d"
+                       + kernels.BUILDS[tdt], "stencil": name,
+               "cfg": cfg.label(), "dtype": dtype, "route": "cuda",
+               "source": "drstencil_tpu_torch/emit.py",
+               "replaces": "native/emit.hpp:733", "launches": 0,
+               "levels": plan.levels, "taps": len(plan.coeffs),
+               "dims": list(spec.dims), "tile": list(mod.TILE)}
+        ok = within_tolerance(got, want, dtype, row)
+        vs_lib = {}
+        if dtype == "float32":
+            vs_lib["rel_err"] = relative_diff(got, lib_out)
+            same = vs_lib["rel_err"] <= EMIT_TOL
+        else:
+            same = within_tolerance(got, lib_out, dtype, vs_lib)
+        row["vs_library_rel_err"] = vs_lib["rel_err"]
+        row["cells_differing_from_library"] = int((got != lib_out).sum())
+        lib_ms, ms = [], []
+        for fn, into in ((lambda: libk(src, lib_out, plan), lib_ms),
+                         (lambda: kernel(src, got), ms),
+                         (lambda: kernel(src, got), ms),
+                         (lambda: libk(src, lib_out, plan), lib_ms)):
+            into.append(cuda_ms(torch, fn, 10))
+        row["ms"] = sum(ms) / 2
+        row["library_kernel_ms"] = sum(lib_ms) / 2
+        row["plain_ms"] = cuda_ms(torch, lambda: mod.plain_apply(src, want),
+                                  3)
+        # the yardstick and the bound are the library kernel's row's: the
+        # same function on the same shapes, timed earlier in this run
+        row["library_ms"] = library_row["library_ms"]
+        row["bound_ms"], row["bound_by"] = traffic_model(an, cfg).bound_ms(
+            hbm_gbps, fp32_tflops)
+        del src, got, want, lib_out
+        torch.cuda.empty_cache()
+        res = mod.main(["--pairs", str(EMIT_PAIRS), "--warmup",
+                        str(EMIT_WARMUP)])
+        row["launches"] = res["launches"]
+        row["main_ms_per_pair"] = res["ms"] / EMIT_PAIRS
+        print(f"emitted {name}: " + json.dumps(row))
+        report["emitted"].append(row)
+        if not (ok and same
+                and res["launches"] == 2 * (EMIT_PAIRS + EMIT_WARMUP)):
+            raise RuntimeError(f"emitted program of {name} {dtype} failed: "
+                               f"{row}")
+        torch.cuda.empty_cache()
+        return row
+
+    def emitted_phase(library_rows):
+        """Phase 14.  ``library_rows`` are phase 2's and phase 6's rows by
+        dtype and stencil (made here where those phases were skipped).
+        Returns the emitted kernels' rows."""
+        os.makedirs(emit_dir, exist_ok=True)
+        wanted = ([(n, "float32") for n in names]
+                  + [(n, "bfloat16") for n in shard_names])
+        mods = []
+        for name, dtype in wanted:
+            cfg = best_config(name).replace(dtype=dtype)
+            path = os.path.join(emit_dir, f"{name}__{cfg.label()}.py")
+            rc = cli_mod.main([os.path.join(bench, name + ".stc"), "-o", path,
+                               "--check", *cli_flags(cfg)])
+            if rc != 0:
+                raise RuntimeError(f"the CLI refused {name} {cfg.label()}")
+            mods.append(load_program(path))
+        # one nvcc per program, all started together
+        from concurrent.futures import ThreadPoolExecutor
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+            logs = list(pool.map(lambda m: m.compile_kernel()[1], mods))
+        report["emitted_build_seconds"] = time.perf_counter() - t0
+        print(f"{len(mods)} emitted kernels built in "
+              f"{report['emitted_build_seconds']:.1f}s")
+        for (name, dtype), log in zip(wanted, logs):
+            print_ptxas(log, f" {name} {dtype}")
+        rows = []
+        for (name, dtype), mod in zip(wanted, mods):
+            base = library_rows[dtype].get(name) or kernel_row(name, dtype)
+            rows.append(emitted_row(mod, name, dtype, base))
+        emitted_runs()
+        return rows
+
+    def emitted_runs():
+        """Five programs emitted by ``python -m drstencil_tpu_torch.cli``
+        and run as their own processes at the reduced size, all started
+        together; each must exit 0 and, with ``--check``, print [Test]
+        lines within the fp64-golden tolerances."""
+        four = ",".join(["cuda:0"] * N_SHARDS)
+        runs = [
+            ("2d5pt_star", ["--step", "4", "--trapezoid", "--check"],
+             ["--check"], "float32"),
+            ("3d13pt_star", ["--step", "1", "--check"], ["--check"],
+             "float32"),
+            ("2d9pt_star", ["--step", "2", "--trapezoid", "--dtype",
+                            "bfloat16", "--check"], ["--check"], "bfloat16"),
+            ("3d7pt_star", ["--step", "3", "--trapezoid", "--shard",
+                            str(N_SHARDS), "--check"],
+             ["--check", "--devices", four], "float32"),
+            ("2d5pt_star", ["--step", "2", "--gold"], None, None),
+        ]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+        procs = []
+        for i, (name, emit_flags, run_flags, dtype) in enumerate(runs):
+            full = specs.get(name) or load_stc(
+                os.path.join(bench, name + ".stc"))
+            small = StencilSpec(full.name, REDUCED[full.ndim],
+                                full.iterations, full.taps)
+            stc = os.path.join(emit_dir, f"run{i}_{name}.stc")
+            out_py = os.path.join(emit_dir, f"run{i}_{name}.py")
+            with open(stc, "w") as fh:
+                fh.write(small.to_stc())
+            run = ([sys.executable, out_py, "--pairs", "1"]
+                   if run_flags is None else
+                   [sys.executable, out_py, "--pairs", str(RUN_PAIRS),
+                    "--warmup", str(RUN_WARMUP), *run_flags])
+            emit_cmd = [sys.executable, "-m", "drstencil_tpu_torch.cli", stc,
+                        "-o", out_py, *emit_flags]
+            # emit, then run the program from another directory and with no
+            # path to the package: it stands alone
+            script = ("import os, subprocess, sys; "
+                      f"subprocess.run({emit_cmd!r}, check=True); "
+                      "env = {k: v for k, v in os.environ.items() "
+                      "if k != 'PYTHONPATH'}; "
+                      f"sys.exit(subprocess.run({run!r}, cwd={emit_dir!r}, "
+                      "env=env).returncode)")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", script], env=env, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        try:
+            outs = [p.communicate(timeout=EMIT_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for (name, emit_flags, run_flags, dtype), p, (out, err) in zip(
+                runs, procs, outs):
+            line = {"stencil": name, "emit": emit_flags, "run": run_flags,
+                    "rc": p.returncode}
+            ok = p.returncode == 0
+            if run_flags is None:
+                ok = ok and "checksum:" in out
+            elif ok:
+                vals = {k: float(out.split(f"[Test] {k}:")[1].split()[0])
+                        for k in ("Max Error", "RMS Error",
+                                  "Max Relative Error")}
+                line.update(max_err=vals["Max Error"],
+                            rms_err=vals["RMS Error"],
+                            max_rel_err=vals["Max Relative Error"],
+                            launches=int(out.split("kernel launches:")[1]
+                                         .split()[0]),
+                            ms=float(out.split("GPU computation time:")[1]
+                                     .split()[0]))
+                # max|gold| = max error / max relative error (floored at 1)
+                top = (vals["Max Error"] / vals["Max Relative Error"]
+                       if vals["Max Relative Error"] > 0 else 1.0)
+                line["tol_scale"] = max(1.0, top / 100.0)
+                max_tol, rms_tol = GOLDEN_TOL[dtype]
+                shards = N_SHARDS if "--shard" in emit_flags else 1
+                ok = (vals["Max Error"] < max_tol * line["tol_scale"]
+                      and vals["RMS Error"] < rms_tol * line["tol_scale"]
+                      and line["launches"]
+                      == 2 * shards * (RUN_PAIRS + RUN_WARMUP))
+            print("emitted run " + json.dumps(line))
+            report["emitted_runs"].append(line)
+            if not ok:
+                raise RuntimeError(f"emitted program run failed: {line}\n"
+                                   f"{out[-2000:]}\n{err[-3000:]}")
+
+    def tile2d_phase():
+        """Phase 15.  Returns ``tile2d_fused``'s rows, one per row of the
+        experiment's ``SWEEP``."""
+        rows, table = [], []
+        for name, sweep in exp_tile2d.SWEEP.items():
+            spec = specs.get(name) or load_stc(
+                os.path.join(bench, name + ".stc"))
+            R, C = spec.dims
+            for step, tm in sweep:
+                an = analyze(spec, step=step, require_partition=False)
+                taps = kernels.tile2d_taps(an.fused, an.halo)
+                src = torch.zeros((R + 2 * tm, C), device=dev)
+                src[tm:tm + R] = torch.rand((R, C), generator=gen,
+                                            device=dev) * 100.0
+                fill = torch.rand((R + 2 * tm, C), generator=gen,
+                                  device=dev) - 0.5
+                got, want = fill.clone(), fill.clone()
+                kernels.tile2d_fused(src, got, taps, tm)
+                kernels.tile2d_fused.plain(src, want, taps, tm)
+                torch.cuda.synchronize()
+                row = {"name": "tile2d_fused", "stencil": name,
+                       "dtype": "float32", "step": step, "tm": tm,
+                       "route": kernels.tile2d_fused.route,
+                       "source": kernels.tile2d_fused.source,
+                       "replaces": kernels.tile2d_fused.replaces,
+                       "launches": 0, "taps": taps.ntaps,
+                       "halo": an.halo, "dims": [R + 2 * tm, C]}
+                ok = within_tolerance(got[tm:tm + R], want[tm:tm + R],
+                                      "float32", row)
+                row["pads_unchanged"] = bool(
+                    torch.equal(got[:tm], fill[:tm])
+                    and torch.equal(got[tm + R:], fill[tm + R:]))
+                row["ms"] = cuda_ms(
+                    torch, lambda: kernels.tile2d_fused(src, got, taps, tm),
+                    20)
+                row["plain_ms"] = cuda_ms(
+                    torch, lambda: kernels.tile2d_fused.plain(
+                        src, want, taps, tm), 3)
+                # yardstick: one cuDNN convolution of the fused table on
+                # the data block (zero padding, TF32 off)
+                h = an.halo
+                weight = torch.zeros((1, 1, 2 * h + 1, 2 * h + 1), device=dev)
+                for (di, dj), c in an.fused.items():
+                    weight[0, 0, di + h, dj + h] = c
+                x4 = src[None, None, tm:tm + R]
+                row["library_ms"] = cuda_ms(
+                    torch, lambda: F.conv2d(x4, weight, padding=h), 3)
+                bytes_ms = 2 * 4 * R * C / (hbm_gbps * 1e9) * 1e3
+                ops_ms = 2 * taps.ntaps * R * C / (fp32_tflops * 1e12) * 1e3
+                row["bound_ms"] = max(bytes_ms, ops_ms)
+                row["bound_by"] = ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+                del src, fill, got, want, x4
+                torch.cuda.empty_cache()
+                if not (ok and row["pads_unchanged"]):
+                    raise RuntimeError(f"tile2d_fused failed: {row}")
+                rows.append(row)
+        # the experiment itself: each stencil's winner, then each tile
+        # program checked against the torch gold and timed
+        for name in exp_tile2d.SWEEP:
+            spec = specs.get(name) or load_stc(
+                os.path.join(bench, name + ".stc"))
+            win = exp_tile2d.measure_winner(spec)
+            for row in (r for r in rows if r["stencil"] == name):
+                kernels.reset_launches()
+                ms = exp_tile2d.measure_tile(spec, row["step"], row["tm"])
+                row["launches"] = kernels.tile2d_fused.launches
+                row["ms_per_step"], row["winner_ms_per_step"] = ms, win
+                table.append((name, row["step"], row["tm"], ms, win))
+                torch.cuda.empty_cache()
+        exp_tile2d.print_table(table)
+        for row in rows:
+            print("tile2d " + json.dumps(row))
+        report["tile2d"] = rows
+        return rows
+
+    def overlap_phase():
+        """Phase 16.  Returns ``overlap_probe``'s rows, one per variant and
+        depth."""
+        R, N, TM, HK = (exp_overlap.R, exp_overlap.N, exp_overlap.TM,
+                        exp_overlap.HK)
+        n_strips, wrote = R // TM, TM - 4 * HK
+        written = torch.zeros(R, dtype=torch.bool, device=dev)
+        for i in range(n_strips):
+            written[i * TM:i * TM + wrote] = True
+        # yardstick: one level as one cuDNN convolution (columns wrapped by
+        # circular padding) on every strip's block
+        w5 = torch.tensor([[0.02, 0.05, 0.1, 0.05, 0.02],
+                           [0.05, 0.1, 0.2, 0.1, 0.05],
+                           [0.1, 0.2, 0.3, 0.2, 0.1],
+                           [0.05, 0.1, 0.2, 0.1, 0.05],
+                           [0.02, 0.05, 0.1, 0.05, 0.02]], device=dev)
+        # the rows a strip's result needs, read once, and its rows written
+        need_bytes = 4 * N * n_strips * ((wrote + 8) + wrote)
+        ops = 21 * N * n_strips * ((TM - 2 * HK) + wrote)
+        rows = []
+        for variant in kernels.PROBE_VARIANTS:
+            shape = (R, N) if variant == "A" else (R + 2 * HK, N)
+            x = torch.rand(shape, generator=gen, device=dev) * 100.0
+            fill = torch.rand((R, N), generator=gen, device=dev) - 0.5
+            blocks = x[:n_strips * TM].view(n_strips, 1, TM, N)
+            library_ms = cuda_ms(torch, lambda: F.conv2d(
+                F.pad(blocks, (2, 2, 0, 0), mode="circular"),
+                w5[None, None]), 3)
+            for depth in exp_overlap.DEPTHS:
+                call, _ = exp_overlap.make(variant, depth, dev)
+                got, want = fill.clone(), fill.clone()
+                _, carry = call(x, got)
+                n_ctas = kernels.overlap_probe.n_ctas(
+                    dev, (R, N), variant, depth, TM, HK)
+                _, want_carry = kernels.overlap_probe.plain(
+                    x, want, variant, TM, HK, n_ctas)
+                torch.cuda.synchronize()
+                row = {"name": "overlap_probe", "stencil": f"{variant}"
+                       f" depth {depth}", "dtype": "float32",
+                       "variant": variant, "depth": depth, "ctas": n_ctas,
+                       "route": kernels.overlap_probe.route,
+                       "source": kernels.overlap_probe.source,
+                       "replaces": kernels.overlap_probe.replaces,
+                       "launches": 0, "dims": list(shape)}
+                ok = within_tolerance(got[written], want[written], "float32",
+                                      row)
+                row["unwritten_unchanged"] = bool(
+                    torch.equal(got[~written], fill[~written]))
+                row["carry_equal"] = (carry is None if want_carry is None
+                                      else bool(torch.equal(carry,
+                                                            want_carry)))
+                row["plain_ms"] = cuda_ms(
+                    torch, lambda: kernels.overlap_probe.plain(
+                        x, want, variant, TM, HK, n_ctas), 3)
+                row["library_ms"] = library_ms
+                bytes_ms = need_bytes / (hbm_gbps * 1e9) * 1e3
+                ops_ms = ops / (fp32_tflops * 1e12) * 1e3
+                row["bound_ms"] = max(bytes_ms, ops_ms)
+                row["bound_by"] = ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+                if not (ok and row["unwritten_unchanged"]
+                        and row["carry_equal"]):
+                    raise RuntimeError(f"overlap_probe failed: {row}")
+                rows.append(row)
+            del x, fill, blocks, got, want
+            torch.cuda.empty_cache()
+        # the experiment itself: its own times, counted launch by launch
+        sweep_bytes_ms = exp_overlap.bytes_ms(dev)
+        print(f"overlap: one sweep moves {2 * 4 * R * N / 1e9:.3f} GB: "
+              f"{sweep_bytes_ms:.4f} ms at the HBM peak")
+        for row in rows:
+            kernels.reset_launches()
+            row["ms"] = exp_overlap.measure(row["variant"], row["depth"], dev)
+            row["launches"] = kernels.overlap_probe.launches
+            row["compute_only_ms"] = exp_overlap.measure(
+                row["variant"], row["depth"], dev, load=False)
+            row["sweep_bytes_ms"] = sweep_bytes_ms
+            print("overlap " + json.dumps(row))
+        report["overlap"] = rows
+        return rows
+
     if args.mesh_devices:
         return multi_device_only()
 
-    # -- 2. each kernel against its plain version ---------------------------
-    kernel_rows = {n: kernel_row(n, "float32") for n in names}
+    if args.from_phase <= 2:
+        # -- 2. each kernel against its plain version ---------------------------
+        kernel_rows = {n: kernel_row(n, "float32") for n in names}
 
-    # -- 3. main path at the .stc size ---------------------------------------
-    for name in names:
-        main_path(name, "float32", kernel_rows)
+        # -- 3. main path at the .stc size ---------------------------------------
+        for name in names:
+            main_path(name, "float32", kernel_rows)
 
-    # -- 4. fp64 golden at reduced size --------------------------------------
-    for name in names:
-        golden(name, "float32")
+        # -- 4. fp64 golden at reduced size --------------------------------------
+        for name in names:
+            golden(name, "float32")
 
-    # -- 5. the entry point ---------------------------------------------------
-    pair, (a, b) = entry_mod.entry()
-    base = load_stc(os.path.join(bench, "2d5pt_star.stc"))
-    spec = StencilSpec(base.name, tuple(a.shape), base.iterations, base.taps)
-    cfg = KernelConfig(variant="stream", step=1, tm=128)
-    gold = xla_ref.apply_interior(analyze(spec, cfg.step))
-    ga, gb = a.clone(), b.clone()
-    kernels.reset_launches()
-    pair(a, b)
-    gold(ga, gb)
-    gold(gb, ga)
-    torch.cuda.synchronize()
-    graft_rel = relative_diff(a, ga)
-    max_err, rms = StencilProgram(spec, cfg).check()
-    graft = {"stencil": "2d5pt_star", "cfg": cfg.label(),
-             "dims": list(a.shape), "rel_vs_gold": graft_rel,
-             "golden_max_err": max_err, "golden_rms": rms,
-             "launches": kernels.stencil2d_levels.launches}
-    print("graft " + json.dumps(graft))
-    report["graft"] = graft
-    if not (graft["dims"] == list(GRAFT_DIMS) and graft["launches"] >= 2
-            and graft_rel <= KERNEL_TOL
-            and max_err < MAX_TOL and rms < RMS_TOL):
-        raise RuntimeError(f"entry() failed: {graft}")
-    del a, b, ga, gb
+        # -- 5. the entry point ---------------------------------------------------
+        pair, (a, b) = entry_mod.entry()
+        base = load_stc(os.path.join(bench, "2d5pt_star.stc"))
+        spec = StencilSpec(base.name, tuple(a.shape), base.iterations, base.taps)
+        cfg = KernelConfig(variant="stream", step=1, tm=128)
+        gold = xla_ref.apply_interior(analyze(spec, cfg.step))
+        ga, gb = a.clone(), b.clone()
+        kernels.reset_launches()
+        pair(a, b)
+        gold(ga, gb)
+        gold(gb, ga)
+        torch.cuda.synchronize()
+        graft_rel = relative_diff(a, ga)
+        max_err, rms = StencilProgram(spec, cfg).check()
+        graft = {"stencil": "2d5pt_star", "cfg": cfg.label(),
+                 "dims": list(a.shape), "rel_vs_gold": graft_rel,
+                 "golden_max_err": max_err, "golden_rms": rms,
+                 "launches": kernels.stencil2d_levels.launches}
+        print("graft " + json.dumps(graft))
+        report["graft"] = graft
+        if not (graft["dims"] == list(GRAFT_DIMS) and graft["launches"] >= 2
+                and graft_rel <= KERNEL_TOL
+                and max_err < MAX_TOL and rms < RMS_TOL):
+            raise RuntimeError(f"entry() failed: {graft}")
+        del a, b, ga, gb
 
-    # -- 6. the bf16 builds against their plain version ----------------------
-    bf16_rows = {n: kernel_row(n, "bfloat16") for n in names}
+        # -- 6. the bf16 builds against their plain version ----------------------
+        bf16_rows = {n: kernel_row(n, "bfloat16") for n in names}
 
-    # -- 7. the bf16 main path at the .stc size -------------------------------
-    for name in names:
-        main_path(name, "bfloat16", bf16_rows)
+        # -- 7. the bf16 main path at the .stc size -------------------------------
+        for name in names:
+            main_path(name, "bfloat16", bf16_rows)
 
-    # -- 8. bf16 fp64 golden at reduced size ---------------------------------
-    for name in names:
-        golden(name, "bfloat16")
+        # -- 8. bf16 fp64 golden at reduced size ---------------------------------
+        for name in names:
+            golden(name, "bfloat16")
 
-    # -- 9. the autotuner on the card ----------------------------------------
-    report["tuner"] = tune_phase(
-        torch, Tuner, tuned_mod, session_mod, bench, specs)
+        # -- 9. the autotuner on the card ----------------------------------------
+        report["tuner"] = tune_phase(
+            torch, Tuner, tuned_mod, session_mod, bench, specs)
 
-    # -- 10. the shard-local kernels against their plain version -------------
-    shard_rows = {dt: {n: shard_kernel_row(n, dt) for n in shard_names}
-                  for dt in ("float32", "bfloat16")}
+    if args.from_phase <= 10:
+        # -- 10. the shard-local kernels against their plain version -------------
+        shard_rows = {dt: {n: shard_kernel_row(n, dt) for n in shard_names}
+                      for dt in ("float32", "bfloat16")}
 
-    # -- 11. the sharded main path at the .stc size ---------------------------
-    for dt, lines in zip(shard_rows, sharded_phase()):
-        for name in shard_names:
-            shard_rows[dt][name]["launches"] = lines[name]["launches"]
+        # -- 11. the sharded main path at the .stc size ---------------------------
+        for dt, lines in zip(shard_rows, sharded_phase()):
+            for name in shard_names:
+                shard_rows[dt][name]["launches"] = lines[name]["launches"]
 
-    # -- 12. factor mode -------------------------------------------------------
-    factor_rows = []
-    for name in FACTOR_STENCILS:
-        for step in FACTOR_STEPS:
-            for dt in ("float32", "bfloat16"):
-                row = factor_kernel_row(name, step, dt)
-                factor_main_path(name, step, dt, row)
-                factor_rows.append(row)
+        # -- 12. factor mode -------------------------------------------------------
+        factor_rows = []
+        for name in FACTOR_STENCILS:
+            for step in FACTOR_STEPS:
+                for dt in ("float32", "bfloat16"):
+                    row = factor_kernel_row(name, step, dt)
+                    factor_main_path(name, step, dt, row)
+                    factor_rows.append(row)
 
-    # -- 13. the multi-device dry run -------------------------------------------
-    dryrun_phase()
+        # -- 13. the multi-device dry run -------------------------------------------
+        dryrun_phase()
 
-    # -- 14. result lines ----------------------------------------------------
+    # -- 14. emitted programs -------------------------------------------------
+    emitted_rows = emitted_phase(
+        {"float32": kernel_rows, "bfloat16": bf16_rows}
+        if args.from_phase <= 2 else {"float32": {}, "bfloat16": {}})
+
+    # -- 15. the plain-tile experiment -----------------------------------------
+    tile2d_rows = tile2d_phase()
+
+    # -- 16. the overlap probe ---------------------------------------------------
+    overlap_rows = overlap_phase()
+
+    if args.from_phase > 2:
+        write_report()
+        print(f"partial run from phase {args.from_phase}: no result lines")
+        return 0
+
+    # -- 17. result lines ----------------------------------------------------
     if sha256(tuned_json) != tuned_sha:
         raise RuntimeError("benchmarks/tuned.json changed during the run")
     keys = ("name", "stencil", "dtype", "route", "source", "replaces",
@@ -708,7 +1141,7 @@ def main(argv=None) -> int:
             "bound_by", "library_ms")
     all_rows = ([kernel_rows[n] for n in names] + [bf16_rows[n] for n in names]
                 + [shard_rows[dt][n] for dt in shard_rows for n in shard_names]
-                + factor_rows)
+                + factor_rows + emitted_rows + tile2d_rows + overlap_rows)
     idle = [r["name"] for r in all_rows if r["launches"] <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on their path: {idle}")

@@ -5,6 +5,8 @@ fields and numpy arrays: a JAX ``StencilSpec`` as its fields, a
 ``KernelConfig`` as its dict, and ping-pong state as the JAX side's
 real-shaped arrays (already unpadded by its ``unpad_state``).  A bfloat16
 state crosses through float32, which holds every bfloat16 value exactly.
+The plain-tile experiment's state crosses as the real-shaped data block:
+each package pads it into its own ``(R + 2 * tm, C)`` buffer.
 A sharded state crosses as the global array: each package splits it into
 its own shards (the JAX side's ``stream_shard.shard_state`` into padded
 tall buffers, the port's into ghosted slabs) and joins them back.
@@ -66,3 +68,19 @@ def sharded_state_to_numpy(state: dict, g, dtype=np.float32) -> tuple:
     state's slabs, cast to the numpy ``dtype``."""
     return tuple(stream_shard.unshard_state(state[k], g)
                  .astype(dtype, copy=False) for k in ("a", "b"))
+
+
+def padded_state_from_numpy(a: np.ndarray, tm: int, device=None) -> torch.Tensor:
+    """The ``(R + 2 * tm, C)`` fp32 buffer of ``tuning/exp_tile2d.py``'s
+    layout on ``device`` (``None`` = CUDA): the real-shaped ``(R, C)`` numpy
+    array ``a`` in data rows ``[tm, tm + R)``, zero pad rows around it."""
+    a = np.asarray(a, dtype=np.float32)
+    buf = torch.zeros((a.shape[0] + 2 * tm, a.shape[1]), dtype=torch.float32,
+                      device=resolve_device(device))
+    buf[tm:tm + a.shape[0]] = torch.from_numpy(a)
+    return buf
+
+
+def padded_state_to_numpy(buf: torch.Tensor, tm: int) -> np.ndarray:
+    """The data rows ``[tm, rows - tm)`` of a padded buffer as numpy."""
+    return buf[tm:buf.shape[0] - tm].detach().to("cpu", copy=True).numpy()

@@ -16,17 +16,27 @@ streaming kernel ``drstencil_tpu/ops/stream.py:568-803``:
   alternating the 3x3 tables V1 and V2 of ``ir/factor.py``, where every
   V2 level adds the residual R read from the level two back.
 
-Each has two builds, on float32 and on bfloat16 state (C entries ``<name>``
-and ``<name>_bf16``): the bf16 build loads as fp32, computes every level in
-fp32 and rounds once at the store, as the TPU kernel does with
-``dtype="bfloat16"``.  The source notes in ``stencil.cu`` give the designs
+``csrc/experiments.cu`` holds the kernels of the two kernel experiments
+(``tuning/exp_tile2d.py``, ``tuning/exp_overlap.py``), fp32 only:
+
+- ``tile2d_fused`` (the TPU kernel ``tuning/exp_tile2d.py:78-89``): the
+  step-fused operator applied whole to a ``(R + 2 * tm, C)`` padded state,
+  columns wrapping around ``C``, pad rows never written;
+- ``overlap_probe`` (``tuning/exp_overlap.py:59-65``): a timing probe,
+  ``level(level(window))`` per strip with a synchronous or a ``cp.async``
+  prefetched window load.
+
+Each streaming kernel has two builds, on float32 and on bfloat16 state (C
+entries ``<name>`` and ``<name>_bf16``): the bf16 build loads as fp32,
+computes every level in fp32 and rounds once at the store, as the TPU
+kernel does with ``dtype="bfloat16"``.  The source notes in ``stencil.cu`` give the designs
 and the bounds.
 
-The kernels are compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
-repository root at first use, and loaded with ``ctypes`` through a plain C
-interface.  Each wrapper dispatches on the tensors' device: CPU tensors go
-to the plain PyTorch version beside it (``*_ref``), CUDA tensors launch the
-kernel or raise.  On CUDA it dispatches on the tensors' dtype to the fp32
+Each source is compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
+repository root at first use (one library per source), and loaded with
+``ctypes`` through a plain C interface.  Each wrapper dispatches on the
+tensors' device: CPU tensors go to the plain PyTorch version beside it
+(``*_ref``), CUDA tensors launch the kernel or raise.  On CUDA it dispatches on the tensors' dtype to the fp32
 or the bf16 build.  Each wrapper's ``launches`` counts its kernel's launches
 (both builds) only.
 """
@@ -57,9 +67,20 @@ BUILDS = {torch.float32: "", torch.bfloat16: "_bf16"}
 # to fit SMEM_LIMIT.
 TILE_2D = (32, 64)
 TILE_3D = (8, 16, 32)
+# csrc/experiments.cu's sizes, checked at load: the column shifts of a tile2d
+# table, the outputs a tile2d thread keeps in registers (tm is a multiple),
+# tile2d's columns per CTA, the probe's columns per tile and rows per chunk.
+TILE2D_MAX_GROUPS = 64
+TILE2D_ROWS_PER_THREAD = 8
+TILE2D_COLS = 64
+PROBE_TILE = 128
+PROBE_CHUNK = 8
+# the probe's variants, in the order of the C entry's `variant` argument
+PROBE_VARIANTS = ("A", "B", "C")
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "stencil.cu")
+EXPERIMENTS_SOURCE = os.path.join(_PKG_DIR, "csrc", "experiments.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -144,9 +165,14 @@ def smem_bytes(tile, frame: int, nbuf: int) -> int:
 # -- build -------------------------------------------------------------------
 
 class _Library:
-    """The compiled kernel library, built and loaded at first use."""
+    """One compiled kernel library (``source`` -> ``build/<stem>_<hash>
+    .so``), built and loaded at first use.  ``check(lib)`` holds the
+    source's constants against this module's."""
 
-    def __init__(self):
+    def __init__(self, source: str, stem: str, check):
+        self.source = source
+        self.stem = stem
+        self._check = check
         self._lib = None
         self._lock = threading.Lock()
         self.path = None
@@ -160,15 +186,15 @@ class _Library:
             return self._lib
 
     def _load(self):
-        with open(SOURCE, "rb") as f:
+        with open(self.source, "rb") as f:
             src = f.read()
         digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        self.path = os.path.join(BUILD_DIR, f"libdrstencil_{digest[:16]}.so")
+        self.path = os.path.join(BUILD_DIR, f"{self.stem}_{digest[:16]}.so")
         t0 = time.perf_counter()
         if not os.path.exists(self.path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{self.path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
@@ -178,18 +204,37 @@ class _Library:
         self.build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(self.path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.stencil_max_taps.argtypes = []
-        lib.stencil_max_taps.restype = i32
-        lib.stencil_error_string.argtypes = [i32]
-        lib.stencil_error_string.restype = ctypes.c_char_p
         for kernel in KERNELS:
-            for suffix in BUILDS.values():
-                fn = getattr(lib, kernel.name + suffix)
-                fn.argtypes = kernel.argtypes(ptr, i32)
+            if kernel.library is not self:
+                continue
+            for entry, argtypes in kernel.c_entries(ptr, i32).items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
                 fn.restype = i32
-        if lib.stencil_max_taps() != MAX_TAPS:
-            raise RuntimeError("stencil.cu MAX_TAPS disagrees with kernels.py")
+        self._check(lib)
         return lib
+
+
+def _check_stencil(lib) -> None:
+    lib.stencil_max_taps.argtypes = []
+    lib.stencil_max_taps.restype = ctypes.c_int
+    lib.stencil_error_string.argtypes = [ctypes.c_int]
+    lib.stencil_error_string.restype = ctypes.c_char_p
+    if lib.stencil_max_taps() != MAX_TAPS:
+        raise RuntimeError("stencil.cu MAX_TAPS disagrees with kernels.py")
+
+
+def _check_experiments(lib) -> None:
+    lib.experiments_limit.argtypes = [ctypes.c_int]
+    lib.experiments_limit.restype = ctypes.c_int
+    lib.experiments_error_string.argtypes = [ctypes.c_int]
+    lib.experiments_error_string.restype = ctypes.c_char_p
+    want = (MAX_TAPS, TILE2D_MAX_GROUPS, TILE2D_ROWS_PER_THREAD, TILE2D_COLS,
+            PROBE_TILE, PROBE_CHUNK)
+    got = tuple(lib.experiments_limit(i) for i in range(len(want)))
+    if got != want:
+        raise RuntimeError(f"experiments.cu limits {got} disagree with "
+                           f"kernels.py {want}")
 
 
 def _nvcc() -> str:
@@ -203,14 +248,32 @@ def _nvcc() -> str:
     return path
 
 
-LIBRARY = _Library()
+LIBRARY = _Library(SOURCE, "libdrstencil", _check_stencil)
+EXPERIMENTS = _Library(EXPERIMENTS_SOURCE, "libexperiments",
+                       _check_experiments)
 
 
-def build() -> _Library:
-    """Build (or find) and load the kernel library; returns it, with
+def build():
+    """Build (or find) and load both kernel libraries, one ``nvcc`` each,
+    started together; returns ``(LIBRARY, EXPERIMENTS)``, each with
     ``build_seconds``, ``path`` and the compiler's ``build_log``."""
-    LIBRARY.get()
-    return LIBRARY
+    libs = (LIBRARY, EXPERIMENTS)
+    errors = []
+
+    def load(lib):
+        try:
+            lib.get()
+        except Exception as e:      # re-raised below, in the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=load, args=(lib,)) for lib in libs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return libs
 
 
 # -- plain versions ----------------------------------------------------------
@@ -296,6 +359,102 @@ def stencil2d_factor_levels_ref(src, dst, taps: FactorTaps):
     return _store(cur, dst, H)
 
 
+# -- the kernel experiments: plain versions ----------------------------------
+
+@dataclass(frozen=True)
+class Tile2dTaps:
+    """A fused 2D operator grouped by column shift, as
+    ``tuning/exp_tile2d.py`` groups it: ``groups`` is ``((dj, ((di, coef),
+    ...)), ...)`` ascending in ``dj`` and, within a group, in ``di``;
+    ``halo`` bounds every ``|di|`` and ``|dj|``."""
+
+    groups: tuple
+    halo: int
+
+    @property
+    def ntaps(self) -> int:
+        return sum(len(rows) for _, rows in self.groups)
+
+
+def tile2d_taps(fused, halo: int) -> Tile2dTaps:
+    """Group the tap map ``fused`` ({(di, dj): coef}) by column shift."""
+    by_dj: dict = {}
+    for (di, dj), c in sorted(fused.items()):
+        by_dj.setdefault(dj, []).append((di, float(c)))
+    groups = tuple((dj, tuple(rows)) for dj, rows in sorted(by_dj.items()))
+    return Tile2dTaps(groups=groups, halo=int(halo))
+
+
+def tile2d_fused_ref(src: torch.Tensor, dst: torch.Tensor, taps: Tile2dTaps,
+                     tm: int) -> torch.Tensor:
+    """Plain PyTorch version of ``tile2d_fused``: the arithmetic of
+    ``tuning/exp_tile2d.py:78-89`` on the whole data block at once, a row
+    pre-sum per column shift and one ``torch.roll`` (which wraps) each,
+    summed in ascending ``dj``.  Writes data rows ``[tm, tm + R)`` only."""
+    R = src.shape[0] - 2 * tm
+    acc = None
+    for dj, rows in taps.groups:
+        t = None
+        for di, c in rows:
+            term = c * src[tm + di:tm + di + R, :]
+            t = term if t is None else t + term
+        if dj:
+            t = torch.roll(t, -dj, dims=1)
+        acc = t if acc is None else acc + t
+    dst[tm:tm + R] = acc
+    return dst
+
+
+def probe_level_ref(x: torch.Tensor, n: int) -> torch.Tensor:
+    """One level of ``tuning/exp_overlap.py:35-55`` on rows ``[0, n)`` of
+    ``x`` (..., rows >= n + 4, N): 5 shifted row slices, pre-sums, three
+    weighted combinations, four column rolls that wrap, in its order."""
+    rows = [x[..., d:d + n, :] for d in range(5)]
+    p2 = rows[0] + rows[4]
+    p1 = rows[1] + rows[3]
+    p0 = rows[2]
+    inners = [
+        0.02 * p2 + 0.05 * p1 + 0.1 * p0,
+        0.05 * p2 + 0.1 * p1 + 0.2 * p0,
+        0.1 * p2 + 0.2 * p1 + 0.3 * p0,
+    ]
+    acc = inners[2]
+    for s, inner in ((1, inners[1]), (2, inners[0])):
+        acc = acc + torch.roll(inner, -s, dims=-1)
+        acc = acc + torch.roll(inner, s, dims=-1)
+    return acc
+
+
+def overlap_probe_ref(x: torch.Tensor, out: torch.Tensor, variant: str,
+                      tm: int, hk: int, n_ctas: int):
+    """Plain PyTorch version of ``overlap_probe``: per ``tm``-row strip,
+    two levels on the strip's window, written to rows ``[0, tm - 4 * hk)``
+    of the strip's output block; every other row of ``out`` is left as it
+    is.  Strip ``i``'s window starts at row ``i * tm`` of ``x`` in every
+    variant, and the levels read only its first ``tm - 4 * hk + 8`` rows,
+    so A (``x`` of R rows) and B/C (R + 2 * hk rows) run the same code.
+    Returns ``(out, carry)``: for variant C the ``(n_ctas, hk, PROBE_TILE)``
+    carry each CTA holds after its last tile (half of the first ``hk`` rows
+    of that tile's window), else ``None``."""
+    R, N = out.shape
+    n_strips = R // tm
+    win = x[:n_strips * tm].view(n_strips, tm, N)
+    lvl = probe_level_ref(probe_level_ref(win, tm - 2 * hk), tm - 4 * hk)
+    out[:n_strips * tm].view(n_strips, tm, N)[:, :tm - 4 * hk] = lvl
+    if variant != "C":
+        return out, None
+    n_ctiles = N // PROBE_TILE
+    ntiles = n_strips * n_ctiles
+    carry = torch.empty((n_ctas, hk, PROBE_TILE), dtype=x.dtype,
+                        device=x.device)
+    for cta in range(n_ctas):
+        last = cta + (ntiles - 1 - cta) // n_ctas * n_ctas
+        strip, ct = divmod(last, n_ctiles)
+        carry[cta] = win[strip, :hk,
+                         ct * PROBE_TILE:(ct + 1) * PROBE_TILE] * 0.5
+    return out, carry
+
+
 # -- wrappers ----------------------------------------------------------------
 
 class LevelsKernel:
@@ -311,6 +470,7 @@ class LevelsKernel:
 
     route = "cuda"
     source = "drstencil_tpu_torch/csrc/stencil.cu"
+    library = LIBRARY
     taps_type = LevelTaps
 
     def __init__(self, name: str, ndim: int, plain, replaces: str,
@@ -321,6 +481,11 @@ class LevelsKernel:
         self.replaces = replaces
         self.shard = shard
         self.launches = 0
+
+    def c_entries(self, ptr, i32):
+        """The C entries (one per build) with their ctypes argument types."""
+        return {self.name + suffix: self.argtypes(ptr, i32)
+                for suffix in BUILDS.values()}
 
     def argtypes(self, ptr, i32):
         """ctypes argument types of the C entry: src, dst, the grid, the
@@ -422,6 +587,193 @@ def _table_args(offsets, coeffs, keep):
     return [offs.ctypes.data, coefs.ctypes.data, len(coefs)]
 
 
+
+def _check_fp32_pair(name: str, x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Checks shared by the experiments' wrappers; True when both tensors
+    lie on the CPU (the plain version's case)."""
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 tensors, got {x.dtype} and "
+                        f"{y.dtype}")
+    if x.device.type == "cpu" and y.device.type == "cpu":
+        return True
+    if x.device.type != "cuda" or x.device != y.device:
+        raise ValueError(f"{name} needs both tensors on one CUDA device, "
+                         f"got {x.device} and {y.device}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous tensors")
+    if x.untyped_storage().data_ptr() == y.untyped_storage().data_ptr():
+        raise ValueError(f"{name}: input and output share storage")
+    if max(x.numel(), y.numel()) >= 2**31:
+        raise ValueError(f"{name}: more cells than the kernel's int indexing")
+    return False
+
+
+def _launch_error(name: str, err: int) -> RuntimeError:
+    lib = EXPERIMENTS.get()
+    return RuntimeError(f"{name} launch failed: "
+                        f"{lib.experiments_error_string(err).decode()}")
+
+
+class Tile2dKernel:
+    """Wrapper of ``tile2d_fused``: ``kernel(src, dst, taps, tm)`` applies
+    the fused operator ``taps`` (a ``Tile2dTaps``) to the data rows of the
+    ``(R + 2 * tm, C)`` fp32 buffer ``src`` and writes data rows ``[tm, tm +
+    R)`` of ``dst`` in place; pad rows keep ``dst``'s bits.  ``tm`` is the
+    pad height of the layout and the number of rows one CTA owns (a CTA
+    takes ``tm`` rows x ``TILE2D_COLS`` columns); it is a multiple of
+    ``TILE2D_ROWS_PER_THREAD`` that divides ``R``, with ``halo <= tm``."""
+
+    name = "tile2d_fused"
+    route = "cuda"
+    source = "drstencil_tpu_torch/csrc/experiments.cu"
+    replaces = "tuning/exp_tile2d.py:78"
+    library = EXPERIMENTS
+    plain = staticmethod(tile2d_fused_ref)
+
+    def __init__(self):
+        self.launches = 0
+
+    def c_entries(self, ptr, i32):
+        """src, dst, R, C, tm, h, the table (dj, start, ngroups, di, coef),
+        the stream."""
+        return {self.name: [ptr, ptr, i32, i32, i32, i32, ptr, ptr, i32,
+                            ptr, ptr, ptr]}
+
+    def __call__(self, src: torch.Tensor, dst: torch.Tensor, taps: Tile2dTaps,
+                 tm: int) -> torch.Tensor:
+        if src.dim() != 2 or src.shape != dst.shape:
+            raise ValueError(f"{self.name} takes two 2D buffers of one "
+                             f"shape, got {tuple(src.shape)} and "
+                             f"{tuple(dst.shape)}")
+        R, C = src.shape[0] - 2 * tm, src.shape[1]
+        if (tm < 1 or tm % TILE2D_ROWS_PER_THREAD or R < tm or R % tm
+                or taps.halo > tm):
+            raise ValueError(
+                f"{self.name}: tm={tm} must be a multiple of "
+                f"{TILE2D_ROWS_PER_THREAD} that divides the {R} data rows "
+                f"and is at least the halo {taps.halo}")
+        if len(taps.groups) > TILE2D_MAX_GROUPS or taps.ntaps > MAX_TAPS:
+            raise ValueError(
+                f"{self.name}: {taps.ntaps} taps in {len(taps.groups)} column "
+                f"shifts exceed the table of {MAX_TAPS} in "
+                f"{TILE2D_MAX_GROUPS}")
+        if _check_fp32_pair(self.name, src, dst):
+            return self.plain(src, dst, taps, tm)
+        smem = 4 * (tm + 2 * taps.halo) * (TILE2D_COLS + 2 * taps.halo)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{self.name}: a window of {smem} bytes exceeds "
+                             "shared memory; use a smaller tm")
+        lib = EXPERIMENTS.get()
+        dj = np.array([g[0] for g in taps.groups], dtype=np.int32)
+        start = np.cumsum([0] + [len(g[1]) for g in taps.groups]
+                          ).astype(np.int32)
+        di = np.array([d for g in taps.groups for d, _ in g[1]],
+                      dtype=np.int32)
+        coef = np.array([c for g in taps.groups for _, c in g[1]],
+                        dtype=np.float32)
+        with torch.cuda.device(src.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tile2d_fused(
+                src.data_ptr(), dst.data_ptr(), R, C, tm, taps.halo,
+                dj.ctypes.data, start.ctypes.data, len(dj), di.ctypes.data,
+                coef.ctypes.data, stream)
+        if err:
+            raise _launch_error(self.name, err)
+        self.launches += 1
+        return dst
+
+
+class OverlapProbeKernel:
+    """Wrapper of ``overlap_probe``: ``kernel(x, out, variant, depth, tm,
+    hk)`` returns ``(out, carry)``.  ``x`` is ``(R, N)`` for variant A and
+    ``(R + 2 * hk, N)`` for B and C, ``out`` is ``(R, N)``, both fp32; rows
+    ``[0, tm - 4 * hk)`` of each ``tm``-row block of ``out`` are written,
+    the rest keeps its bits.  ``depth`` 1 loads each window synchronously,
+    2 prefetches the next one with ``cp.async``; ``load=False`` skips the
+    loads (a compute-only timing, the output then means nothing).
+    ``carry`` is variant C's ``(n_ctas, hk, PROBE_TILE)`` buffer, else
+    ``None``."""
+
+    name = "overlap_probe"
+    route = "cuda"
+    source = "drstencil_tpu_torch/csrc/experiments.cu"
+    replaces = "tuning/exp_overlap.py:59"
+    library = EXPERIMENTS
+    plain = staticmethod(overlap_probe_ref)
+
+    def __init__(self):
+        self.launches = 0
+
+    def c_entries(self, ptr, i32):
+        """in, out, carry, R, N, TM, HK, variant, depth, load, the CTAs,
+        the stream."""
+        return {self.name: [ptr, ptr, ptr] + [i32] * 8 + [ptr]}
+
+    @staticmethod
+    def smem_bytes(variant: str, depth: int, tm: int, hk: int) -> int:
+        """Shared memory of one CTA: ``depth`` windows, the level-1 rows
+        and the carry."""
+        wrows = tm if variant == "A" else tm + 2 * hk
+        return 4 * (depth * wrows * (PROBE_TILE + 8)
+                    + (tm - 2 * hk) * (PROBE_TILE + 4) + hk * PROBE_TILE)
+
+    def n_ctas(self, device, shape, variant: str, depth: int, tm: int,
+               hk: int) -> int:
+        """Persistent CTAs of one launch: as many as fit on the card's SMs
+        by shared memory, at most one per tile."""
+        R, N = shape
+        ntiles = (R // tm) * (N // PROBE_TILE)
+        if device.type != "cuda":
+            return min(ntiles, 132)
+        per_sm = max(1, min(8, SMEM_LIMIT // self.smem_bytes(
+            variant, depth, tm, hk)))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return min(ntiles, sms * per_sm)
+
+    def __call__(self, x: torch.Tensor, out: torch.Tensor, variant: str,
+                 depth: int = 2, tm: int = 96, hk: int = 8,
+                 load: bool = True):
+        if variant not in PROBE_VARIANTS or depth not in (1, 2):
+            raise ValueError(f"{self.name}: variant {variant!r} of "
+                             f"{PROBE_VARIANTS}, depth {depth} of (1, 2)")
+        if out.dim() != 2 or x.dim() != 2:
+            raise ValueError(f"{self.name} takes 2D tensors")
+        R, N = out.shape
+        if (hk < 2 or tm <= 4 * hk or (tm - 2 * hk) % PROBE_CHUNK
+                or (tm - 4 * hk) % PROBE_CHUNK or R < tm
+                or N < PROBE_TILE or N % PROBE_TILE):
+            raise ValueError(
+                f"{self.name}: needs hk >= 2, tm > 4 * hk with tm - 2 * hk "
+                f"and tm - 4 * hk multiples of {PROBE_CHUNK}, R >= tm and N "
+                f"a multiple of {PROBE_TILE}; got R={R} N={N} tm={tm} "
+                f"hk={hk}")
+        want = (R if variant == "A" else R + 2 * hk, N)
+        if tuple(x.shape) != want:
+            raise ValueError(f"{self.name}: variant {variant} reads "
+                             f"{want}, got {tuple(x.shape)}")
+        on_cpu = _check_fp32_pair(self.name, x, out)
+        n_ctas = self.n_ctas(x.device, (R, N), variant, depth, tm, hk)
+        if on_cpu:
+            return self.plain(x, out, variant, tm, hk, n_ctas)
+        if self.smem_bytes(variant, depth, tm, hk) > SMEM_LIMIT:
+            raise ValueError(f"{self.name}: tm={tm} hk={hk} depth={depth} "
+                             "exceed shared memory")
+        lib = EXPERIMENTS.get()
+        carry = (torch.empty((n_ctas, hk, PROBE_TILE), dtype=torch.float32,
+                             device=x.device) if variant == "C" else None)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.overlap_probe(
+                x.data_ptr(), out.data_ptr(),
+                carry.data_ptr() if carry is not None else None, R, N, tm,
+                hk, PROBE_VARIANTS.index(variant), depth, int(load), n_ctas,
+                stream)
+        if err:
+            raise _launch_error(self.name, err)
+        self.launches += 1
+        return out, carry
+
+
 stencil2d_levels = LevelsKernel(
     "stencil2d_levels", 2, stencil2d_levels_ref,
     "drstencil_tpu/ops/stream.py:568")
@@ -437,8 +789,11 @@ stencil3d_levels_shard = LevelsKernel(
 stencil2d_factor_levels = FactorLevelsKernel(
     "stencil2d_factor_levels", 2, stencil2d_factor_levels_ref,
     "drstencil_tpu/ops/stream.py:683")
+tile2d_fused = Tile2dKernel()
+overlap_probe = OverlapProbeKernel()
 KERNELS = (stencil2d_levels, stencil3d_levels, stencil2d_levels_shard,
-           stencil3d_levels_shard, stencil2d_factor_levels)
+           stencil3d_levels_shard, stencil2d_factor_levels, tile2d_fused,
+           overlap_probe)
 
 
 def kernel_for(ndim: int, shard: bool = False) -> LevelsKernel:

@@ -141,23 +141,8 @@ class StencilProgram:
                                f"runs on {self.device}")
         n = pairs if pairs is not None else max(self.num_pairs(), 8)
         state = self.init_state(seed)
-        a, b = state["a"], state["b"]
-        pair = self.pair_fn()
-        with torch.cuda.device(self.device):
-            for _ in range(warmup_pairs):
-                pair(a, b)
-            torch.cuda.synchronize()
-            per_pair = []
-            for _ in range(repeats):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(n):
-                    pair(a, b)
-                end.record()
-                end.synchronize()
-                per_pair.append(start.elapsed_time(end) / 1e3 / n)
-        sec_per_pair = sorted(per_pair)[len(per_pair) // 2]
+        sec_per_pair = time_pairs(self.pair_fn(), state["a"], state["b"],
+                                  warmup_pairs, n, repeats)
         cells = float(np.prod(self.spec.dims))
         steps = 2 * self.an.step
         return RunResult(
@@ -203,6 +188,31 @@ class StencilProgram:
         ref, h = self.gold_a(s_me, pairs)
         mine = self.run_pairs(s_me, pairs)["a"]
         return relative_diff(mine, ref, h)
+
+
+def time_pairs(pair, a: torch.Tensor, b: torch.Tensor, warmup_pairs: int,
+               pairs: int, repeats: int) -> float:
+    """The timed protocol on the card the CUDA tensor ``a`` lies on:
+    ``warmup_pairs`` calls of ``pair(a, b)``, then the median over
+    ``repeats`` of ``pairs`` calls timed with CUDA events.  Returns seconds
+    per pair."""
+    if a.device.type != "cuda":
+        raise RuntimeError(f"time_pairs measures the card; got {a.device}")
+    with torch.cuda.device(a.device):
+        for _ in range(warmup_pairs):
+            pair(a, b)
+        torch.cuda.synchronize()
+        per_pair = []
+        for _ in range(repeats):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(pairs):
+                pair(a, b)
+            end.record()
+            end.synchronize()
+            per_pair.append(start.elapsed_time(end) / 1e3 / pairs)
+    return sorted(per_pair)[len(per_pair) // 2]
 
 
 def relative_diff(x: torch.Tensor, ref: torch.Tensor, h: int = 0) -> float:

@@ -6,8 +6,8 @@ re-times the top-K ledger configs per stencil ``reps`` times each, in one
 process on one card, picks the best SoL-normalised median, folds the
 medians back into the ledger, and writes the winners to
 ``tune.tuned.TUNED_GPU_PATH`` directly (bypassing ``record_best``'s
-monotonicity, which would refuse an honest but larger number).  It writes
-no program artifacts (they wait for the GPU emitter, ROADMAP queue 5).
+monotonicity, which would refuse an honest but larger number), and keeps
+each winner's generated program in ``out_dir/cu/`` in step with it.
 
 ``python -m drstencil_tpu_torch.tune.finalists [--out-dir tuning_gpu]
 [--top 4] [--reps 3] [--stencils a,b,...]``
@@ -28,6 +28,7 @@ from drstencil_tpu_torch.ir.spec import load_stc
 from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.ops.runner import StencilProgram
 from drstencil_tpu_torch.tune import tuned as tuned_mod
+from drstencil_tpu_torch.tune.tuner import emit_artifact
 
 
 def top_configs(paths, k: int):
@@ -128,6 +129,8 @@ def main(argv=None, device=None):
                                    "device": torch.cuda.get_device_name(dev),
                                    "protocol": f"median-of-{args.reps}"}}
         print(f"[{name}] FINALIST: {label} @ {med:.4f} ms/step", flush=True)
+        emit_artifact(spec, cfg, args.out_dir,
+                      log=lambda m: print(m, flush=True))
 
     path = tuned_mod.TUNED_GPU_PATH
     tuned = tuned_mod.load_table(path)

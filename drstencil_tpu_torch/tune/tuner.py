@@ -10,12 +10,14 @@ score against the card's roofline.  Artifacts, in ``out_dir``:
 - ``<stencil>.ledger.json``  config label → status/score; a killed sweep
   resumes from it;
 - the winner per stencil in ``tune.tuned.TUNED_GPU_PATH`` (never in
-  ``benchmarks/tuned.json``).
+  ``benchmarks/tuned.json``);
+- ``cu/<stencil>__<label>.py``  the standalone program of the winner
+  (``emit.emit`` with ``check=True``).
 
 A failing config (a build or launch error, a failed check, a timeout) is
 logged as ``status=error`` or ``check_failed`` and the sweep goes on.
-The JAX tuner's per-config program artifacts (``cu/``) wait for the GPU
-emitter (ROADMAP queue 5).
+The winner's generated program is kept under ``out_dir/cu/`` (every
+attempted config's with ``--keep-artifacts``), as the JAX tuner keeps them.
 
 ``python -m drstencil_tpu_torch.tune.tuner benchmarks/2d5pt_star.stc
 --out-dir /tmp/t --max-configs 4`` runs a short sweep on the card.
@@ -38,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from drstencil_tpu_torch import emit as emit_mod
 from drstencil_tpu_torch.ir.spec import StencilSpec, load_stc
 from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.ops.runner import StencilProgram
@@ -116,7 +119,7 @@ class Tuner:
                  time_budget_s: float = 3600.0, pairs: int = 10,
                  check: bool = True, seed: int = 0,
                  config_timeout_s: float = 420.0, isolate: bool = False,
-                 device=None):
+                 device=None, keep_artifacts: bool = False):
         self.spec = spec
         self.out_dir = out_dir
         self.time_budget_s = time_budget_s
@@ -126,6 +129,7 @@ class Tuner:
         self.config_timeout_s = config_timeout_s
         self.isolate = isolate
         self.device = device
+        self.keep_artifacts = keep_artifacts
         os.makedirs(out_dir, exist_ok=True)
         self.ledger_path = os.path.join(out_dir, f"{spec.name}.ledger.json")
         self.metrics_path = os.path.join(out_dir, "metrics.csv")
@@ -271,6 +275,10 @@ class Tuner:
                 break
             tried += 1
             log(f"[{self.spec.name}] {i + 1}/{len(cands)}: {label}")
+            if self.keep_artifacts:
+                # written BEFORE measuring, so that a failed or hung config
+                # leaves a program to debug too
+                emit_artifact(self.spec, cand.cfg, self.out_dir, log)
             try:
                 entry = self._measure_with_timeout(cand)
             except Exception as e:  # build/launch/timeout: skip and log
@@ -313,8 +321,34 @@ class Tuner:
             if device:
                 score["device"] = device
             tuned_mod.record_best(self.spec.name, best_cfg, score)
+            emit_artifact(self.spec, best_cfg, self.out_dir, log)
         return SweepResult(best_cfg=best_cfg, best_ms=best_ms, tried=tried,
                            errors=errors)
+
+
+def emit_artifact(spec: StencilSpec, cfg: KernelConfig, out_dir: str,
+                  log=print) -> None:
+    """Write ``cfg``'s generated program to ``out_dir/cu/<stencil>__<label>
+    .py`` (``emit.emit`` with ``check=True``).  Only stream configs have an
+    emitter, and factor mode has none, so those are skipped.  Soft-fail:
+    emitting an artifact must never kill a sweep."""
+    if cfg.variant != "stream" or cfg.factor:
+        return
+    try:
+        text = emit_mod.emit(
+            spec, spec.name, step=cfg.step, distance=cfg.distance,
+            merge_forward=cfg.merge_forward, tm=cfg.tm or 0, check=True,
+            dtype=cfg.dtype, trapezoid=cfg.trapezoid,
+            lane_mode=cfg.lane_mode or "", ch=cfg.ch or 0, vfuse=cfg.vfuse,
+            block=cfg.block, prefetch=cfg.prefetch, jfix=cfg.jfix,
+            cli_line=f"(tuner: {cfg.label()})")
+        cu_dir = os.path.join(out_dir, "cu")
+        os.makedirs(cu_dir, exist_ok=True)
+        path = os.path.join(cu_dir, f"{spec.name}__{cfg.label()}.py")
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(text)
+    except Exception as e:
+        log(f"[{spec.name}] artifact emit skipped: {str(e)[:200]}")
 
 
 def main(argv=None):
@@ -335,21 +369,17 @@ def main(argv=None):
                     help="measure each config in its own process, killed "
                     "at the per-config timeout")
     ap.add_argument("--keep-artifacts", action="store_true",
-                    help="not available: program artifacts wait for the "
-                    "GPU emitter")
+                    help="write cu/<stencil>__<label>.py for every "
+                    "attempted config, not just the winner")
     ap.add_argument("--config-timeout", type=float, default=420.0,
                     help="per-config cap in seconds (a kill with "
                     "--isolate, SIGALRM otherwise)")
     args = ap.parse_args(argv)
-    if args.keep_artifacts:
-        raise NotImplementedError(
-            "--keep-artifacts: the port emits no per-config programs until "
-            "the GPU emitter lands (ROADMAP queue 5)")
-
     spec = load_stc(args.stc)
     tuner = Tuner(spec, args.out_dir, time_budget_s=args.budget,
                   pairs=args.pairs, check=not args.no_check,
-                  isolate=args.isolate, config_timeout_s=args.config_timeout)
+                  isolate=args.isolate, config_timeout_s=args.config_timeout,
+                  keep_artifacts=args.keep_artifacts)
     res = tuner.sweep(max_configs=args.max_configs, label_filter=args.filter)
     print(f"best for {spec.name}: "
           f"{res.best_cfg.label() if res.best_cfg else 'none'} "

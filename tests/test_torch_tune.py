@@ -273,10 +273,74 @@ def test_measure_config_needs_the_card():
                                  KernelConfig(step=1), device="cpu")
 
 
-def test_keep_artifacts_waits_for_the_emitter():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 5"):
-        tuner_mod.main([os.path.join(BENCH_DIR, "2d5pt_star.stc"),
-                        "--keep-artifacts"])
+def test_keep_artifacts_waits_for_the_emitter(on_fake_card):
+    """The emitter is there, so ``keep_artifacts`` writes one program per
+    attempted stream config (and none for the xla gold) before measuring
+    it; without it only the winner's is kept, as in the JAX tuner."""
+    spec = port_spec("2d5pt_star", (32, 256))
+    out = str(on_fake_card / "kept")
+    t = Tuner(spec, out, pairs=1, device="cpu", keep_artifacts=True)
+    t.sweep(max_configs=5, log=lambda *_: None)
+    streams = [k for k, e in t.ledger.items()
+               if e["config"]["variant"] == "stream"]
+    assert streams
+    assert sorted(os.listdir(os.path.join(out, "cu"))) == sorted(
+        f"2d5pt_star__{label}.py" for label in streams)
+
+    out = str(on_fake_card / "winner_only")
+    t = Tuner(spec, out, pairs=1, device="cpu")
+    res = t.sweep(max_configs=5, log=lambda *_: None)
+    assert os.listdir(os.path.join(out, "cu")) == [
+        f"2d5pt_star__{res.best_cfg.label()}.py"]
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_keep_artifacts_flag_reaches_the_tuner(monkeypatch, tmp_path, flag):
+    seen = {}
+
+    def fake_sweep(self, max_configs=None, label_filter=None, log=print):
+        seen["keep"] = self.keep_artifacts
+        return tuner_mod.SweepResult(None, float("inf"), 0, 0)
+
+    monkeypatch.setattr(Tuner, "sweep", fake_sweep)
+    tuner_mod.main([os.path.join(BENCH_DIR, "2d5pt_star.stc"), "--out-dir",
+                    str(tmp_path)] + (["--keep-artifacts"] if flag else []))
+    assert seen["keep"] is flag
+
+
+def test_artifact_is_the_emitters_program_with_check(tmp_path):
+    spec = port_spec("2d5pt_star", (32, 256))
+    cfg = KernelConfig(step=4, trapezoid=True, block=2, lane_mode="roll",
+                       tm=128, dtype="bfloat16")
+    tuner_mod.emit_artifact(spec, cfg, str(tmp_path))
+    path = tmp_path / "cu" / f"2d5pt_star__{cfg.label()}.py"
+    text = path.read_text(encoding="utf-8")
+    assert "CHECK = True" in text and 'DTYPE = "bfloat16"' in text
+    assert "levels=2 reach=2" in text and "bx=128" in text
+    g = {"__name__": "artifact"}
+    exec(compile(text, str(path), "exec"), g)
+    assert g["DIMS"] == (32, 256) and g["LEVELS"] == 2
+
+
+@pytest.mark.parametrize("cfg", [
+    KernelConfig(variant="xla", step=2),
+    KernelConfig(step=2, factor=True),
+], ids=["xla", "factor"])
+def test_no_artifact_for_what_has_no_emitter(tmp_path, cfg):
+    logged = []
+    tuner_mod.emit_artifact(port_spec("2d25pt_box", (32, 256)), cfg,
+                            str(tmp_path), logged.append)
+    assert not (tmp_path / "cu").exists() and logged == []
+
+
+def test_artifact_emission_fails_softly(tmp_path):
+    logged = []
+    cfg = KernelConfig(step=3, trapezoid=True)      # no reuse at distance 3
+    tuner_mod.emit_artifact(port_spec("3d9pt_cross"), cfg, str(tmp_path),
+                            logged.append)
+    assert len(logged) == 1
+    assert logged[0].startswith("[3d9pt_cross] artifact emit skipped: "
+                                "No data to reuse")
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -412,6 +476,12 @@ def test_finalists_write_the_ports_table(on_fake_card, capsys):
     led = json.loads((out / "2d5pt_star.ledger.json").read_text())
     assert all(e["protocol"] == "median-of-2" for e in led.values())
     assert sha(tuned_mod.TUNED_PATH) == tuned_sha
+    # the winner's program is kept in step with the table
+    winner = KernelConfig.from_dict(table["2d5pt_star"]["config"])
+    assert os.listdir(out / "cu") == [f"2d5pt_star__{winner.label()}.py"]
+    text = (out / "cu" / f"2d5pt_star__{winner.label()}.py").read_text(
+        encoding="utf-8")
+    assert "DIMS = (8192, 8192, )" in text and "CHECK = True" in text
 
 
 # -- session and report --------------------------------------------------------
