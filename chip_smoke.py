@@ -10,14 +10,20 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
                                   # four cards: phases 11 and 13 with one shard
                                   # per card, and weak scaling measured
 
-It builds the CUDA kernels from ``drstencil_tpu_torch/csrc`` (nvcc, into
+It builds the CUDA kernels from the sources in the checkout (nvcc, into
 ``build/``) and runs, raising on the first failure:
 
-1. environment: the card's name and power limit, versions, build time;
-2. each kernel against its plain PyTorch version on every tuned winner's
-   tap table at the ``.stc`` size (max|kernel - plain| / max|plain| <=
-   1e-5), with the kernel's, the plain version's and a cuDNN convolution's
-   times beside the kernel's bound;
+1. environment: the card's name and power limit, versions; the two
+   ``.cu`` libraries of ``drstencil_tpu_torch/csrc`` and the per-plan
+   kernels of every plan known ahead (``ops/codegen.py``'s text: every
+   winner at the ``.stc`` and the reduced size in fp32 and bf16, the
+   shard slabs, factor mode's unfactored programs), one ``nvcc`` each,
+   started together; seconds, registers and spills per plan;
+2. each per-plan kernel against its plain PyTorch version on every tuned
+   winner's tap table at the ``.stc`` size (max|kernel - plain| /
+   max|plain| <= 1e-5), with the kernel's, the plain version's and a cuDNN
+   convolution's times beside the kernel's bound, its registers, spills,
+   CTAs per SM and build seconds;
 3. the main path — ``StencilProgram(spec, best_config(name))`` at the
    ``.stc`` size: ``time()``, then ``device_check(pairs=1) <= 1e-3`` —
    with the kernel's launch count read around it;
@@ -38,8 +44,9 @@ It builds the CUDA kernels from ``drstencil_tpu_torch/csrc`` (nvcc, into
    directory with ``TUNED_GPU_PATH`` pointed there;
 10. the shard-local kernels against their plain version, fp32 and bf16,
     on a quarter slab of the ``.stc`` grid with its ghost rows, for the
-    first, an interior and the last shard's store range (fp32 <= 1e-5
-    relative, bf16 <= 1 ulp; everything outside the range bit-unchanged);
+    first, an interior and the last shard's store range and an empty one
+    (fp32 <= 1e-5 relative, bf16 <= 1 ulp; everything outside the range
+    bit-unchanged; the empty range launches nothing);
 11. the sharded main path — ``sharded_stream_pair(spec, best_config(name),
     make_mesh(4, devices=["cuda:0"] * 4))`` at the ``.stc`` size for every
     winner in fp32 and four of them in bf16: one pair against the
@@ -76,8 +83,9 @@ It builds the CUDA kernels from ``drstencil_tpu_torch/csrc`` (nvcc, into
     against its plain version on the written rows (the others
     bit-unchanged), then the experiment (ms/sweep beside the bytes time
     and the compute-only time);
-17. one ``{"kernels": [...]}`` line (every kernel, fp32 and bf16 rows), the
-    card line, then the ok line.
+17. one ``{"kernels": [...]}`` line (every kernel a driven path launches,
+    fp32 and bf16 rows, with that path's count), the card line, then the ok
+    line.
 
 Details also go to ``build/chip_smoke.json``.  ``benchmarks/tuned.json``
 is checked byte-identical at the end.  Without CUDA, or outside a
@@ -247,13 +255,69 @@ def main(argv=None) -> int:
         print_ptxas(lib.build_log)
     report = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
-              "build_seconds": build_seconds, "kernels": [],
+              "build_seconds": build_seconds, "plans": [], "kernels": [],
               "main_path": [], "golden": [], "sharded": [], "factor": [],
               "weak_scaling_measured": [], "emitted": [], "emitted_runs": [],
               "tile2d": [], "overlap": []}
 
     specs = {n: load_stc(os.path.join(bench, n + ".stc")) for n in names}
     shard_names = [n for n in SHARD_STENCILS if n in specs]
+
+    def plan_requests(mesh_only):
+        """(what, (plan, dims, dtype, shard)) of every per-plan kernel the
+        phases below are known to launch (``mesh_only``: the multi-device
+        phases', weak scaling's longer slabs included)."""
+        out = []
+        for name in names:
+            spec = specs[name]
+            for dtype in ("float32", "bfloat16"):
+                cfg = best_config(name).replace(dtype=dtype)
+                an = analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
+                plan = level_plan(an, cfg)
+                rest = tuple(spec.dims[1:])
+                out.append((f"{name} {dtype}",
+                            (plan, spec.dims, dtype, False)))
+                if not mesh_only:
+                    out.append((f"{name} {dtype} reduced",
+                                (plan, REDUCED[spec.ndim], dtype, False)))
+                if dtype == "float32" or name in shard_names:
+                    slab = (spec.dims[0] // N_SHARDS + 2 * plan.frame,) + rest
+                    out.append((f"{name} {dtype} shard slab",
+                                (plan, slab, dtype, True)))
+                if mesh_only and dtype == "float32":
+                    slab = (spec.dims[0] + 2 * plan.frame,) + rest
+                    out.append((f"{name} weak-scaling slab",
+                                (plan, slab, dtype, True)))
+        for name in () if mesh_only else FACTOR_STENCILS:
+            spec = specs.get(name) or load_stc(
+                os.path.join(bench, name + ".stc"))
+            for step in FACTOR_STEPS:
+                for dtype in ("float32", "bfloat16"):
+                    cfg = KernelConfig(step=step, trapezoid=step > 1,
+                                       dtype=dtype)
+                    out.append((f"{name} {cfg.label()}", (
+                        level_plan(analyze(spec, step), cfg), spec.dims,
+                        dtype, False)))
+        return out
+
+    wanted_plans = plan_requests(bool(args.mesh_devices))
+    t0 = time.perf_counter()
+    built = kernels.build_plans([r for _, r in wanted_plans])
+    report["plan_build_seconds"] = time.perf_counter() - t0
+    distinct = len({p.path for p in built})
+    print(f"{distinct} per-plan kernels ({len(built)} requests) built in "
+          f"{report['plan_build_seconds']:.1f}s -> "
+          f"{os.path.relpath(kernels.PLAN_DIR, ROOT)}")
+    for (what, _), p in zip(wanted_plans, built):
+        line = {"plan": what, "tile": list(p.geometry.tile),
+                "smem_bytes": p.geometry.smem_bytes,
+                "threads": p.geometry.threads,
+                "ctas_per_sm_by_smem": p.geometry.ctas_per_sm,
+                "build_seconds": p.build_seconds, **p.ptxas()}
+        print("plan " + json.dumps(line))
+        report["plans"].append(line)
+        if line.get("spill_bytes"):
+            print(f"  note: {what} spills {line['spill_bytes']} bytes")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -300,9 +364,13 @@ def main(argv=None) -> int:
             "launches": 0, "levels": plan.levels, "frame": plan.frame,
             "dims": list(shape),
             "taps": plan.taps_per_step if factor else len(plan.coeffs),
-            "tile": list(kernels.tile_shape(len(shape), plan.frame,
-                                            plan.levels, factor)),
+            "tile": list(kernels.tile_shape(plan, shape)),
+            "smem_bytes": kernels.smem_bytes(plan, shape),
         }
+        if not factor:
+            built = kernels.plan_kernel(plan, shape, tdt, rows is not None)
+            row.update(ctas_per_sm_by_smem=built.geometry.ctas_per_sm,
+                       build_seconds=built.build_seconds, **built.ptxas())
         ok = True
         for r in ((rows,) if rows is None else (rows, *also_rows)):
             args = () if r is None else (r,)
@@ -310,7 +378,11 @@ def main(argv=None) -> int:
             kernel(src, got, plan, *args)
             kernel.plain(src, want, plan, *args)
             torch.cuda.synchronize()
-            ok = within_tolerance(got, want, dtype, row) and ok
+            # an empty range stores nothing: the check below, that every
+            # cell outside the range is unchanged, is then the whole check
+            empty = r is not None and r[0] >= r[1]
+            if not empty:
+                ok = within_tolerance(got, want, dtype, row) and ok
             if r is not None:
                 H = plan.frame
                 outside = torch.ones(shape, dtype=torch.bool, device=dev)
@@ -345,6 +417,7 @@ def main(argv=None) -> int:
         row["library_ms"] = cuda_ms(torch, library, 3)
         row["bound_ms"], row["bound_by"] = traffic_model(an, cfg).bound_ms(
             hbm_gbps, fp32_tflops)
+        row["x_bound"] = row["ms"] / row["bound_ms"]
         print(f"kernel {stencil}: " + json.dumps(row))
         if not ok:
             raise RuntimeError(f"{row['name']} on {stencil}: kernel vs plain "
@@ -369,7 +442,8 @@ def main(argv=None) -> int:
     def shard_kernel_row(name, dtype):
         """The shard-local kernel on ``name``'s winner plan on a quarter
         slab of the .stc grid with its ghost rows, for an interior shard's
-        store range (timed), the first shard's and the last's."""
+        store range (timed), the first shard's, the last's and an empty
+        one."""
         spec = specs[name]
         cfg = best_config(name).replace(dtype=dtype)
         an = analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
@@ -381,7 +455,8 @@ def main(argv=None) -> int:
         return compare(name, kernels.kernel_for(spec.ndim, shard=True), plan,
                        an_slab, cfg, level_table(plan), plan.levels,
                        rows=(H, H + local),
-                       also_rows=((2 * H, H + local), (H, local)))
+                       also_rows=((2 * H, H + local), (H, local),
+                                  (2 * H, 2 * H)))
 
     def factor_kernel_row(name, step, dtype):
         """The factor-mode kernel on ``name`` at ``step`` at the .stc size;
@@ -1092,8 +1167,15 @@ def main(argv=None) -> int:
             golden(name, "bfloat16")
 
         # -- 9. the autotuner on the card ----------------------------------------
+        kernels.reset_launches()
         report["tuner"] = tune_phase(
             torch, Tuner, tuned_mod, session_mod, bench, specs)
+        report["tuner"]["launches"] = {
+            k.name: k.launches for k in kernels.PLAN_KERNELS if k.launches}
+        print("tune launches " + json.dumps(report["tuner"]["launches"]))
+        if not report["tuner"]["launches"]:
+            raise RuntimeError("the tuner's sweeps launched no per-plan "
+                               "kernel")
 
     if args.from_phase <= 10:
         # -- 10. the shard-local kernels against their plain version -------------
@@ -1118,6 +1200,7 @@ def main(argv=None) -> int:
         dryrun_phase()
 
     # -- 14. emitted programs -------------------------------------------------
+    kernels.reset_launches()
     emitted_rows = emitted_phase(
         {"float32": kernel_rows, "bfloat16": bf16_rows}
         if args.from_phase <= 2 else {"float32": {}, "bfloat16": {}})

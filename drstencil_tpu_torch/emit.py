@@ -6,13 +6,15 @@ target changed from a Pallas kernel to a CUDA one:
 
 - the constants (``DIMS``, ``ITERATIONS``, ``STEP``, ``H``, ``LEVELS``,
   ``REACH``, ``TILE``, ``DTYPE``) are module globals;
-- ``CUDA_SOURCE`` holds the specialised kernel as text: what
-  ``csrc/stencil.cu`` computes for that one plan, with tile, frame,
-  levels, dims and strides as ``constexpr``, the level loop written out
-  level by level, and the tap loop of a level unrolled into straight-line
-  ``fmaf``s with immediate shared-memory offsets and float literals — no
-  tap table is passed.  ``build_call("cuda")`` compiles it with ``nvcc``
-  for ``sm_90a`` at first use and binds it with ``ctypes``;
+- ``CUDA_SOURCE`` holds the specialised kernel as text: the library's
+  own kernel of that one plan (``ops/codegen.cuda_source``, which
+  ``ops/kernels.plan_kernel`` builds for the library), streamed along
+  axis 0 with four outputs per thread, with column, segment, frame,
+  levels and dims as ``constexpr``, the levels written out one by one,
+  and the taps of a level unrolled into straight-line ``fmaf``s with
+  immediate shared-memory offsets and float literals — no tap table is
+  passed.  ``build_call("cuda")`` compiles it with ``nvcc`` for ``sm_90a``
+  at first use and binds it with ``ctypes``;
 - the same specialised operator is emitted as plain torch code (unrolled
   slices in the library's summation order), which ``build_call("cpu")``
   returns: the role ``--interpret`` plays in the JAX artifact;
@@ -38,40 +40,16 @@ from __future__ import annotations
 import json
 from typing import Union
 
-import numpy as np
-
 from drstencil_tpu_torch.ir.passes import Analysis, analyze
 from drstencil_tpu_torch.ir.spec import StencilSpec, parse_stc
 from drstencil_tpu_torch.ops import kernels
+from drstencil_tpu_torch.ops.codegen import (EmitError, cuda_source,
+                                             float32_literal, literal_value)
 from drstencil_tpu_torch.ops.config import KernelConfig
-from drstencil_tpu_torch.ops.stream import level_plan, state_dtype
+from drstencil_tpu_torch.ops.stream import level_plan
 
-# threads of one CTA: (x, y), as csrc/stencil.cu launches
-BLOCK_X, BLOCK_Y = 32, 8
-
-
-class EmitError(ValueError):
-    """Raised when the emitter rejects a stencil/config combination."""
-
-
-def float32_literal(c) -> str:
-    """``c`` rounded to float32 as a C++17 hexadecimal float literal with
-    the ``f`` suffix: exactly the float32 the library passes in
-    ``LevelTaps.coeffs``.  A decimal literal without the suffix would be a
-    double and promote the level's arithmetic."""
-    v = np.float32(c)
-    if not np.isfinite(v):
-        raise EmitError(f"non-finite coefficient {c!r}")
-    mantissa, exponent = float(v).hex().split("p")
-    mantissa = mantissa.rstrip("0")
-    if mantissa.endswith("."):
-        mantissa += "0"
-    return f"{mantissa}p{exponent}f"
-
-
-def literal_value(lit: str) -> float:
-    """The value of a :func:`float32_literal` (for tests and checks)."""
-    return float.fromhex(lit[:-1])
+__all__ = ["EmitError", "analysis_json", "cuda_source", "dump_analysis",
+           "emit", "float32_literal", "literal_value", "plain_level_source"]
 
 
 def analysis_json(an: Analysis) -> dict:
@@ -154,7 +132,9 @@ def emit(spec_or_stc_text: Union[StencilSpec, str], name: str = "stencil",
         dtype=dtype, lane_mode=lane_mode or None, trapezoid=trapezoid,
         vfuse=vfuse, block=block, jfix=jfix, prefetch=prefetch)
     plan = level_plan(an, cfg)      # the library's remaining rejections
-    tile = kernels.tile_shape(spec.ndim, plan.frame, plan.levels)
+    slab = ((spec.dims[0] + 2 * plan.frame,) + tuple(spec.dims[1:])
+            if shards else tuple(spec.dims))
+    tile = kernels.tile_shape(plan, slab)
 
     global_dims = ((spec.dims[0] * shards,) + tuple(spec.dims[1:])
                    if shards else tuple(spec.dims))
@@ -171,8 +151,8 @@ def emit(spec_or_stc_text: Union[StencilSpec, str], name: str = "stencil",
     o.append(f"#   plan    : levels={plan.levels} reach={plan.reach} "
              f"frame={plan.frame} taps/level={len(plan.coeffs)} "
              f"tile={'x'.join(map(str, tile))} config={cfg.label()}")
-    o.append("#   tpu-only knobs recorded (the CTA tile is the kernel's "
-             f"own): bx={tm} ch={ch} lane_mode={lane_mode or 'auto'} "
+    o.append("#   knobs recorded (TPU-only, no effect here): "
+             f"bx={tm} ch={ch} lane_mode={lane_mode or 'auto'} "
              f"jfix={jfix} prefetch={prefetch}")
     o.append("import argparse, time")
     o.append("import numpy as np")
@@ -194,8 +174,6 @@ def emit(spec_or_stc_text: Union[StencilSpec, str], name: str = "stencil",
     if gold_only:
         return text + _GOLD_MAIN
 
-    slab = ((spec.dims[0] + 2 * plan.frame,) + tuple(spec.dims[1:])
-            if shards else tuple(spec.dims))
     o = [""]
     o.append("import ctypes, hashlib, os, shutil, subprocess, tempfile")
     o.append("import torch")
@@ -205,7 +183,8 @@ def emit(spec_or_stc_text: Union[StencilSpec, str], name: str = "stencil",
     o.append(f"LEVELS = {plan.levels}   # levels one launch applies")
     o.append(f"REACH = {plan.reach}    # cells one level reaches; "
              "H = LEVELS * REACH")
-    o.append(f"TILE = {_dims_tuple(tile)}  # output cells of one CTA")
+    o.append(f"TILE = {_dims_tuple(tile)}  # output cells of one CTA: a "
+             "segment of axis 0, then its column")
     o.append(f"GRID_DIMS = {_dims_tuple(slab)}  # what one launch takes"
              + ("  (a ghosted slab)" if shards else ""))
     o.append(f"SHARD = {bool(shards)}")
@@ -219,248 +198,6 @@ def emit(spec_or_stc_text: Union[StencilSpec, str], name: str = "stencil",
     o.append(plain_level_source(plan))
     text += "\n".join(o) + _RUNTIME
     return text + (_SHARD_MAIN if shards else _MAIN)
-
-
-# -- the specialised CUDA kernel -----------------------------------------------
-
-def _tile_offset(off, ext) -> int:
-    """Linear offset of tap ``off`` in a tile of extents ``ext``."""
-    lin = 0
-    for o, e in zip(off, ext):
-        lin = lin * e + int(o)
-    return lin
-
-
-def cuda_source(plan: kernels.LevelTaps, dims, dtype: str, shard: bool,
-                name: str = "stencil", label: str = "") -> str:
-    """The CUDA C++ text of one plan's kernel on a grid (or ghosted slab)
-    of ``dims`` in ``dtype`` state; ``shard`` adds the axis-0 store range
-    ``[s_lo, s_hi)`` as kernel arguments."""
-    ndim = len(dims)
-    state_dtype(dtype)
-    tile = kernels.tile_shape(ndim, plan.frame, plan.levels)
-    H, L = plan.frame, plan.levels
-    ext = [t + 2 * H for t in tile]
-    nbuf = kernels.n_buffers(L)
-    ctype = "float" if dtype == "float32" else "__nv_bfloat16"
-    axes = ("Z", "Y", "X")[-ndim:]
-    dim_names = ("D", "M", "N")[-ndim:]
-    o = []
-    o.append(f"// {name} [{label}]: {L} level(s) of {len(plan.coeffs)} taps,"
-             f" reach {plan.reach}, frame {H}, specialised by the emitter.")
-    o.append("// Computes what stencil%dd_levels%s%s of csrc/stencil.cu "
-             "computes for this plan;" % (
-                 ndim, "_shard" if shard else "",
-                 "" if dtype == "float32" else "_bf16"))
-    o.append("// every shape is a constant and the taps are unrolled: no "
-             "table is passed.")
-    o.append("#include <cuda_bf16.h>")
-    o.append("#include <cuda_runtime.h>")
-    o.append("#include <stddef.h>")
-    o.append("")
-    o.append(f"typedef {ctype} T;  // the state's storage type")
-    o.append("constexpr int " + ", ".join(
-        f"{n} = {d}" for n, d in zip(dim_names, dims)) + ";")
-    o.append(f"constexpr int H = {H}, LEVELS = {L}, REACH = {plan.reach};")
-    o.append("constexpr int " + ", ".join(
-        f"T{a} = {t}" for a, t in zip(axes, tile)) + ";")
-    o.append("constexpr int " + ", ".join(
-        f"E{a} = T{a} + 2 * H" for a in axes) + ";")
-    cells = " * ".join(f"E{a}" for a in axes)
-    o.append(f"constexpr int TILE_CELLS = {cells};")
-    o.append(f"constexpr size_t SMEM_BYTES = (size_t){nbuf} * TILE_CELLS * "
-             "sizeof(float);")
-    o.append("")
-    if dtype == "float32":
-        o.append("__device__ __forceinline__ float load_f32(const T* p) "
-                 "{ return *p; }")
-        o.append("__device__ __forceinline__ void store_state(T* p, float v) "
-                 "{ *p = v; }")
-    else:
-        o.append("__device__ __forceinline__ float load_f32(const T* p) "
-                 "{ return __bfloat162float(*p); }")
-        o.append("// fp32 levels, one rounding to nearest even at the store")
-        o.append("__device__ __forceinline__ void store_state(T* p, float v) "
-                 "{ *p = __float2bfloat16_rn(v); }")
-    o.append("")
-    o.append("// One level at tile cell `at`: the tap table in sorted order,"
-             " one fmaf per tap.")
-    o.append("__device__ __forceinline__ float level_taps("
-             "const float* __restrict__ in, int at) {")
-    o.append("  float acc = 0.0f;")
-    for off, c in zip(plan.offsets.tolist(), plan.coeffs.tolist()):
-        lin = _tile_offset(off, ext)
-        o.append(f"  acc = fmaf({float32_literal(c)}, in[at + ({lin})], acc);"
-                 f"  // {tuple(off)}")
-    o.append("  return acc;")
-    o.append("}")
-    o.append("")
-    body = _kernel_2d if ndim == 2 else _kernel_3d
-    o += body(L, plan.reach, shard)
-    o.append("")
-    o.append('extern "C" const char* error_string(int err) {')
-    o.append("  return cudaGetErrorString((cudaError_t)err);")
-    o.append("}")
-    o.append("")
-    rng = ", int s_lo, int s_hi" if shard else ""
-    o.append(f'extern "C" int launch(const void* src, void* dst{rng}, '
-             "void* stream) {")
-    if shard:
-        o.append(f"  if (s_lo < H || s_hi > {dim_names[0]} - H) "
-                 "return (int)cudaErrorInvalidValue;")
-    o.append("  cudaError_t err = cudaFuncSetAttribute(")
-    o.append("      stencil_kernel, "
-             "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);")
-    o.append("  if (err != cudaSuccess) return (int)err;")
-    o.append(f"  const dim3 block({BLOCK_X}, {BLOCK_Y});")
-    grid = ", ".join(f"({n} + T{a} - 1) / T{a}"
-                     for n, a in zip(reversed(dim_names), reversed(axes)))
-    o.append(f"  const dim3 grid({grid});")
-    o.append("  stencil_kernel<<<grid, block, SMEM_BYTES, "
-             "(cudaStream_t)stream>>>(")
-    o.append("      (const T*)src, (T*)dst" + (", s_lo, s_hi" if shard else "")
-             + ");")
-    o.append("  return (int)cudaGetLastError();")
-    o.append("}")
-    return "\n".join(o)
-
-
-def _buffers(levels: int):
-    """(in, out) buffer names of intermediate level t = 1..levels-1, then
-    the last level's input."""
-    names = []
-    for t in range(1, levels):
-        names.append(("buf0", "buf1") if t & 1 else ("buf1", "buf0"))
-    last = "buf0" if levels & 1 else "buf1"
-    return names, last
-
-
-def _kernel_2d(levels: int, reach: int, shard: bool):
-    rng = ", int s_lo, int s_hi" if shard else ""
-    lo0, hi0 = ("s_lo", "s_hi") if shard else ("H", "M - H")
-    sx, sy = BLOCK_X, BLOCK_Y
-    o = []
-    o.append(f"__global__ void __launch_bounds__({sx * sy})")
-    o.append("stencil_kernel(const T* __restrict__ src, T* __restrict__ dst"
-             f"{rng}) {{")
-    o.append("  extern __shared__ float smem[];")
-    if shard:
-        o.append("  // a tile with nothing to store: uniform over the block")
-        o.append("  if ((int)blockIdx.y * TY >= s_hi || "
-                 "(int)blockIdx.y * TY + TY <= s_lo) return;")
-    o.append("  float* const buf0 = smem;")
-    if levels > 1:
-        o.append("  float* const buf1 = smem + TILE_CELLS;")
-    o.append("  // global coordinates of the tile's local (0, 0)")
-    o.append("  const int y0 = (int)blockIdx.y * TY - H;")
-    o.append("  const int x0 = (int)blockIdx.x * TX - H;")
-    o.append(f"  for (int ly = threadIdx.y; ly < EY; ly += {sy}) {{")
-    o.append("    const int gy = y0 + ly;")
-    o.append("    const bool row_in = gy >= 0 && gy < M;")
-    o.append(f"    for (int lx = threadIdx.x; lx < EX; lx += {sx}) {{")
-    o.append("      const int gx = x0 + lx;")
-    o.append("      buf0[ly * EX + lx] = (row_in && gx >= 0 && gx < N)")
-    o.append("          ? load_f32(src + (size_t)gy * N + gx) : 0.0f;")
-    o.append("    }")
-    o.append("  }")
-    o.append("  __syncthreads();")
-    names, last = _buffers(levels)
-    for t, (src, dst) in enumerate(names, start=1):
-        lo = t * reach
-        o.append(f"  // level {t} of {levels}: local [{lo}, E - {lo})")
-        o.append(f"  for (int ly = {lo} + threadIdx.y; ly < EY - {lo}; "
-                 f"ly += {sy})")
-        o.append(f"    for (int lx = {lo} + threadIdx.x; lx < EX - {lo}; "
-                 f"lx += {sx})")
-        o.append(f"      {dst}[ly * EX + lx] = level_taps({src}, "
-                 "ly * EX + lx);")
-        o.append("  __syncthreads();")
-    o.append(f"  // level {levels}: the output tile, stored only inside "
-             f"[{lo0}, {hi0}) x [H, N - H)")
-    o.append(f"  for (int ly = H + threadIdx.y; ly < H + TY; ly += {sy}) {{")
-    o.append("    const int gy = y0 + ly;")
-    o.append(f"    if (gy < {lo0} || gy >= {hi0}) continue;")
-    o.append(f"    for (int lx = H + threadIdx.x; lx < H + TX; lx += {sx}) {{")
-    o.append("      const int gx = x0 + lx;")
-    o.append("      if (gx < H || gx >= N - H) continue;")
-    o.append("      store_state(dst + (size_t)gy * N + gx, "
-             f"level_taps({last}, ly * EX + lx));")
-    o.append("    }")
-    o.append("  }")
-    o.append("}")
-    return o
-
-
-def _kernel_3d(levels: int, reach: int, shard: bool):
-    rng = ", int s_lo, int s_hi" if shard else ""
-    lo0, hi0 = ("s_lo", "s_hi") if shard else ("H", "D - H")
-    sx, sy = BLOCK_X, BLOCK_Y
-    o = []
-    o.append(f"__global__ void __launch_bounds__({sx * sy})")
-    o.append("stencil_kernel(const T* __restrict__ src, T* __restrict__ dst"
-             f"{rng}) {{")
-    o.append("  extern __shared__ float smem[];")
-    if shard:
-        o.append("  // a tile with nothing to store: uniform over the block")
-        o.append("  if ((int)blockIdx.z * TZ >= s_hi || "
-                 "(int)blockIdx.z * TZ + TZ <= s_lo) return;")
-    o.append("  constexpr int PLANE = EY * EX;")
-    o.append("  float* const buf0 = smem;")
-    if levels > 1:
-        o.append("  float* const buf1 = smem + TILE_CELLS;")
-    o.append("  const int z0 = (int)blockIdx.z * TZ - H;")
-    o.append("  const int y0 = (int)blockIdx.y * TY - H;")
-    o.append("  const int x0 = (int)blockIdx.x * TX - H;")
-    o.append("  // rows of the tile are (z, y) pairs; threadIdx.x walks x")
-    o.append(f"  for (int row = threadIdx.y; row < EZ * EY; row += {sy}) {{")
-    o.append("    const int lz = row / EY, ly = row - lz * EY;")
-    o.append("    const int gz = z0 + lz, gy = y0 + ly;")
-    o.append("    const bool row_in = gz >= 0 && gz < D && gy >= 0 && gy < M;")
-    o.append("    const T* grow = row_in ? src + ((size_t)gz * M + gy) * N "
-             ": src;")
-    o.append("    float* srow = buf0 + lz * PLANE + ly * EX;")
-    o.append(f"    for (int lx = threadIdx.x; lx < EX; lx += {sx}) {{")
-    o.append("      const int gx = x0 + lx;")
-    o.append("      srow[lx] = (row_in && gx >= 0 && gx < N) "
-             "? load_f32(grow + gx) : 0.0f;")
-    o.append("    }")
-    o.append("  }")
-    o.append("  __syncthreads();")
-    names, last = _buffers(levels)
-    for t, (src, dst) in enumerate(names, start=1):
-        lo = t * reach
-        o.append(f"  // level {t} of {levels}: local [{lo}, E - {lo})")
-        o.append("  {")
-        o.append(f"    constexpr int NY = EY - {2 * lo}, "
-                 f"NROWS = (EZ - {2 * lo}) * NY;")
-        o.append(f"    for (int row = threadIdx.y; row < NROWS; row += {sy}) "
-                 "{")
-        o.append(f"      const int lz = {lo} + row / NY, "
-                 f"ly = {lo} + row % NY;")
-        o.append("      const int at = lz * PLANE + ly * EX;")
-        o.append(f"      for (int lx = {lo} + threadIdx.x; lx < EX - {lo}; "
-                 f"lx += {sx})")
-        o.append(f"        {dst}[at + lx] = level_taps({src}, at + lx);")
-        o.append("    }")
-        o.append("  }")
-        o.append("  __syncthreads();")
-    o.append(f"  // level {levels}: the output tile, stored only inside "
-             f"[{lo0}, {hi0}) x [H, M - H) x [H, N - H)")
-    o.append(f"  for (int row = threadIdx.y; row < TZ * TY; row += {sy}) {{")
-    o.append("    const int lz = H + row / TY, ly = H + row % TY;")
-    o.append("    const int gz = z0 + lz, gy = y0 + ly;")
-    o.append(f"    if (gz < {lo0} || gz >= {hi0} || gy < H || gy >= M - H) "
-             "continue;")
-    o.append("    const int at = lz * PLANE + ly * EX;")
-    o.append("    T* drow = dst + ((size_t)gz * M + gy) * N;")
-    o.append(f"    for (int lx = H + threadIdx.x; lx < H + TX; lx += {sx}) {{")
-    o.append("      const int gx = x0 + lx;")
-    o.append("      if (gx < H || gx >= N - H) continue;")
-    o.append(f"      store_state(drow + gx, level_taps({last}, at + lx));")
-    o.append("    }")
-    o.append("  }")
-    o.append("}")
-    return o
 
 
 # -- the specialised plain torch version ---------------------------------------

@@ -8,14 +8,21 @@ the TPU's Mosaic pipeline; on Hopper they mean:
 - ``step``, ``distance``, ``merge_forward``: unchanged (analysis knobs);
 - ``trapezoid``, ``block``: unchanged — they pick the tap table and the
   number of levels each launch applies (``ops/stream.level_plan``);
-- ``tm``, ``ch``: ignored — the Hopper kernels pick their own tile
-  (``ops/kernels.tile_shape``);
-- ``lane_mode``, ``jfix``, ``prefetch``: no-ops — lane rolls, the j-frame
-  restore and the Mosaic pipeline depth have no counterpart; the frozen
-  frame falls out of never writing it.  ``lane_mode`` still gates
-  ``vfuse`` as in the JAX package, so both reject the same configs;
+- ``tm``, ``ch``: ignored — the Hopper kernels pick their own column and
+  segment (``ops/kernels.tile_shape``);
+- ``lane_mode``, ``jfix``: no-ops — lane rolls and the j-frame restore
+  have no counterpart; the frozen frame falls out of never writing it.
+  ``lane_mode`` still gates ``vfuse`` as in the JAX package, so both
+  reject the same configs;
+- ``prefetch``: a no-op — the Mosaic window-fetch depth (K9).  The
+  streamed kernels always stage ahead (``ops/codegen.py``: the next source
+  plane is requested before a step's levels and staged after them, a
+  windowed 2D plan's rows ``AHEAD_2D`` steps ahead with ``cp.async``);
+  staging where the plane is used measured slower on every tuned winner
+  in both dtypes (PERF.md), so the depth is the generator's constant and
+  not a knob;
 - ``vfuse``: the same kernel as the scratch trapezoid (levels chain
-  through shared memory either way);
+  through shared-memory rings either way);
 - ``factor=True``: a 2D radius-2 operator runs as ``2 * step`` levels of
   its 3x3 factors V1 and V2 plus the residual read two levels back
   (``ir/factor.py``, kernel ``stencil2d_factor_levels``); other tables

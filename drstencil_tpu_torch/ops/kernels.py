@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels: build, wrappers, plain versions.
 
-The CUDA kernels of ``csrc/stencil.cu`` replace every build of the TPU
-streaming kernel ``drstencil_tpu/ops/stream.py:568-803``:
+Every build of the TPU streaming kernel ``drstencil_tpu/ops/stream.py:568-803``
+has a CUDA kernel here:
 
 - ``stencil2d_levels`` for 2D grids and ``stencil3d_levels`` for 3D grids
   (``row_frame=True``): ``levels`` levels of one tap table applied to the
@@ -16,6 +16,20 @@ streaming kernel ``drstencil_tpu/ops/stream.py:568-803``:
   alternating the 3x3 tables V1 and V2 of ``ir/factor.py``, where every
   V2 level adds the residual R read from the level two back.
 
+The four levels kernels are built PER PLAN: ``ops/codegen.cuda_source``
+writes the kernel as text specialised to one (grid dims, storage type,
+shard, tap table, levels, reach) — streamed along axis 0,
+four outputs per thread, every shape a constant, the taps unrolled — and
+:func:`plan_kernel` compiles it with ``nvcc`` for ``sm_90a`` into
+``build/plans/plan_<hash>.so`` at first use (the hash is of text + flags;
+a later process finds the library on disk; about 6 s per plan).
+:func:`build_plans` compiles many plans at once, one ``nvcc`` each, all
+started together; callers that know their plans ahead use it.  A failed
+build raises with the compiler's log; nothing falls back.
+
+``csrc/stencil.cu`` holds the factor kernel: table-driven, one CTA per
+haloed tile, three rotating tiles in shared memory.
+
 ``csrc/experiments.cu`` holds the kernels of the two kernel experiments
 (``tuning/exp_tile2d.py``, ``tuning/exp_overlap.py``), fp32 only:
 
@@ -26,19 +40,16 @@ streaming kernel ``drstencil_tpu/ops/stream.py:568-803``:
   ``level(level(window))`` per strip with a synchronous or a ``cp.async``
   prefetched window load.
 
-Each streaming kernel has two builds, on float32 and on bfloat16 state (C
-entries ``<name>`` and ``<name>_bf16``): the bf16 build loads as fp32,
-computes every level in fp32 and rounds once at the store, as the TPU
-kernel does with ``dtype="bfloat16"``.  The source notes in ``stencil.cu`` give the designs
-and the bounds.
+Each streaming kernel runs on float32 and on bfloat16 state: the bf16
+build loads as fp32, computes every level in fp32 and rounds once at the
+store, as the TPU kernel does with ``dtype="bfloat16"``.
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
-repository root at first use (one library per source), and loaded with
-``ctypes`` through a plain C interface.  Each wrapper dispatches on the
-tensors' device: CPU tensors go to the plain PyTorch version beside it
-(``*_ref``), CUDA tensors launch the kernel or raise.  On CUDA it dispatches on the tensors' dtype to the fp32
-or the bf16 build.  Each wrapper's ``launches`` counts its kernel's launches
-(both builds) only.
+The two ``.cu`` sources are compiled like the plans, one library per
+source.  Everything is loaded with ``ctypes`` through a plain C interface.
+Each wrapper dispatches on the tensors' device: CPU tensors go to the
+plain PyTorch version beside it (``*_ref``), CUDA tensors launch the
+kernel or raise.  Each wrapper's ``launches`` counts its kernel's launches
+(both dtypes) only.
 """
 
 from __future__ import annotations
@@ -46,10 +57,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -57,16 +70,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Size of the by-value tap table (stencil.cu MAX_TAPS); checked at load.
+from drstencil_tpu_torch.ops import codegen
+from drstencil_tpu_torch.ops.codegen import NVCC_FLAGS, SMEM_LIMIT
+
+# Most taps of one level: the size of experiments.cu's by-value tap table,
+# checked at load; ``level_plan`` holds every plan to it.
 MAX_TAPS = 256
-# Shared memory one block may use on Hopper: 227 KB.
-SMEM_LIMIT = 232448
-# Storage dtypes the kernels take, with the suffix of their C entry point.
+# Size of each of the factor kernel's three by-value tables (stencil.cu
+# MAX_FACTOR_TAPS), checked at load.
+MAX_FACTOR_TAPS = 9
+# Storage dtypes the kernels take, with the suffix of their C entry point
+# in ``csrc/stencil.cu`` and their name in a plan's text.
 BUILDS = {torch.float32: "", torch.bfloat16: "_bf16"}
-# Output tile per CTA, (y, x) in 2D and (z, y, x) in 3D, before shrinking
-# to fit SMEM_LIMIT.
-TILE_2D = (32, 64)
-TILE_3D = (8, 16, 32)
+DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+# Output tile (y, x) per CTA of the factor kernel, before shrinking to fit
+# SMEM_LIMIT, and the haloed fp32 tiles it rotates in shared memory (the
+# level two back stays alive).
+FACTOR_TILE = (32, 64)
+FACTOR_BUFFERS = 3
+# nvcc processes :func:`build_plans` runs at once
+BUILD_WORKERS = 16
 # csrc/experiments.cu's sizes, checked at load: the column shifts of a tile2d
 # table, the outputs a tile2d thread keeps in registers (tm is a multiple),
 # tile2d's columns per CTA, the probe's columns per tile and rows per chunk.
@@ -82,10 +105,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "stencil.cu")
 EXPERIMENTS_SOURCE = os.path.join(_PKG_DIR, "csrc", "experiments.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+PLAN_DIR = os.path.join(BUILD_DIR, "plans")
 
 
 @dataclass(frozen=True)
@@ -133,13 +153,39 @@ def is_factor(taps) -> bool:
     return isinstance(taps, FactorTaps)
 
 
-def tile_shape(ndim: int, frame: int, levels: int,
-               factor: bool = False) -> Tuple[int, ...]:
-    """Output tile of one CTA, halved (leading axis first) until the
-    haloed tile — ``n_buffers`` of it — fits in shared memory."""
-    tile = list(TILE_2D if ndim == 2 else TILE_3D)
-    nbuf = n_buffers(levels, factor)
-    while smem_bytes(tile, frame, nbuf) > SMEM_LIMIT:
+def tile_shape(taps, dims) -> Tuple[int, ...]:
+    """Output cells of one CTA of the kernel that runs ``taps`` on a grid
+    of ``dims``: ``(SEG, TX)`` / ``(SEG, TY, TX)`` — a segment of axis 0
+    and the column it walks (``codegen.Geometry``) — for a ``LevelTaps``,
+    the factor kernel's ``(TY, TX)`` tile for a ``FactorTaps``."""
+    if is_factor(taps):
+        return factor_tile_shape(taps.frame)
+    return codegen.geometry(taps, dims).tile
+
+
+def n_buffers(taps, dims) -> int:
+    """fp32 planes (rows in 2D) one CTA keeps in shared memory: a ring of
+    ``2 * reach + 2`` per level, plus the staging rows of a plan that
+    copies ahead; the factor kernel's three tiles."""
+    if is_factor(taps):
+        return FACTOR_BUFFERS
+    return codegen.geometry(taps, dims).window_planes
+
+
+def smem_bytes(taps, dims) -> int:
+    """Shared memory of one CTA, fp32 whatever the storage dtype (the
+    load converts)."""
+    if is_factor(taps):
+        return factor_smem_bytes(tile_shape(taps, dims), taps.frame)
+    return codegen.geometry(taps, dims).smem_bytes
+
+
+def factor_tile_shape(frame: int) -> Tuple[int, int]:
+    """Output tile of one CTA of the factor kernel: ``FACTOR_TILE`` halved
+    (y first) until its ``FACTOR_BUFFERS`` haloed tiles fit in shared
+    memory."""
+    tile = list(FACTOR_TILE)
+    while factor_smem_bytes(tile, frame) > SMEM_LIMIT:
         axis = next((a for a, t in enumerate(tile) if t > 1), None)
         if axis is None:
             raise ValueError(
@@ -148,18 +194,9 @@ def tile_shape(ndim: int, frame: int, levels: int,
     return tuple(tile)
 
 
-def n_buffers(levels: int, factor: bool = False) -> int:
-    """Shared-memory tiles of one CTA: two to ping-pong levels, one for a
-    single level, three in factor mode (the level two back stays alive)."""
-    if factor:
-        return 3
-    return 2 if levels > 1 else 1
-
-
-def smem_bytes(tile, frame: int, nbuf: int) -> int:
-    """Shared memory of one CTA: ``nbuf`` haloed tiles of fp32, whatever
-    the storage dtype (the load converts to fp32)."""
-    return nbuf * 4 * int(np.prod([t + 2 * frame for t in tile]))
+def factor_smem_bytes(tile, frame: int) -> int:
+    """``FACTOR_BUFFERS`` haloed fp32 tiles."""
+    return FACTOR_BUFFERS * 4 * int(np.prod([t + 2 * frame for t in tile]))
 
 
 # -- build -------------------------------------------------------------------
@@ -192,15 +229,7 @@ class _Library:
         self.path = os.path.join(BUILD_DIR, f"{self.stem}_{digest[:16]}.so")
         t0 = time.perf_counter()
         if not os.path.exists(self.path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{self.path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-            os.replace(tmp, self.path)
+            self.build_log = _run_nvcc(self.source, self.path)
         self.build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(self.path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -216,12 +245,13 @@ class _Library:
 
 
 def _check_stencil(lib) -> None:
-    lib.stencil_max_taps.argtypes = []
-    lib.stencil_max_taps.restype = ctypes.c_int
+    lib.stencil_max_factor_taps.argtypes = []
+    lib.stencil_max_factor_taps.restype = ctypes.c_int
     lib.stencil_error_string.argtypes = [ctypes.c_int]
     lib.stencil_error_string.restype = ctypes.c_char_p
-    if lib.stencil_max_taps() != MAX_TAPS:
-        raise RuntimeError("stencil.cu MAX_TAPS disagrees with kernels.py")
+    if lib.stencil_max_factor_taps() != MAX_FACTOR_TAPS:
+        raise RuntimeError("stencil.cu MAX_FACTOR_TAPS disagrees with "
+                           "kernels.py")
 
 
 def _check_experiments(lib) -> None:
@@ -235,6 +265,22 @@ def _check_experiments(lib) -> None:
     if got != want:
         raise RuntimeError(f"experiments.cu limits {got} disagree with "
                            f"kernels.py {want}")
+
+
+def _run_nvcc(source: str, out: str) -> str:
+    """Compile ``source`` into the shared library ``out`` (written whole:
+    another process never sees half of it); returns the compiler's log,
+    raises with it on failure."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n"
+                           f"{log}")
+    os.replace(tmp, out)
+    return log
 
 
 def _nvcc() -> str:
@@ -274,6 +320,132 @@ def build():
     if errors:
         raise errors[0]
     return libs
+
+
+# -- the per-plan kernels -------------------------------------------------------
+
+class PlanKernel:
+    """One plan's kernel: its text, where its library lies, and, once
+    loaded, its ``launch``.  ``build_log`` is what nvcc printed when the
+    library was built (kept beside it, so a later process reads it too);
+    ``build_seconds`` is None when the library was found on disk."""
+
+    def __init__(self, text: str, geometry: codegen.Geometry, shard: bool):
+        self.text = text
+        self.geometry = geometry
+        self.shard = shard
+        stem = os.path.join(PLAN_DIR, "plan_" + codegen.source_hash(text))
+        self.path, self.source, self.log_path = (stem + ".so", stem + ".cu",
+                                                 stem + ".log")
+        self.build_log = ""
+        self.build_seconds = None
+        self._lib = None
+
+    @property
+    def built(self) -> bool:
+        return os.path.exists(self.path)
+
+    def compile(self) -> None:
+        """Run nvcc on the text (one process; raises with its log)."""
+        t0 = time.perf_counter()
+        os.makedirs(PLAN_DIR, exist_ok=True)
+        tmp = f"{self.source}.{os.getpid()}.{threading.get_ident()}.tmp"
+        with open(tmp, "w") as f:
+            f.write(self.text)
+        os.replace(tmp, self.source)
+        self.build_log = _run_nvcc(self.source, self.path)
+        with open(self.log_path, "w") as f:
+            f.write(self.build_log)
+        self.build_seconds = time.perf_counter() - t0
+
+    def load(self) -> "PlanKernel":
+        if self._lib is None:
+            if not self.built:
+                self.compile()
+            elif not self.build_log and os.path.exists(self.log_path):
+                with open(self.log_path) as f:
+                    self.build_log = f.read()
+            lib = ctypes.CDLL(self.path)
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.launch.argtypes = ([ptr, ptr] + [i32] * (2 * self.shard)
+                                   + [ptr])
+            lib.launch.restype = i32
+            lib.error_string.argtypes = [i32]
+            lib.error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self
+
+    def launch(self, src_ptr: int, dst_ptr: int, store, stream: int) -> None:
+        err = self._lib.launch(src_ptr, dst_ptr, *store, stream)
+        if err:
+            raise RuntimeError("plan kernel launch failed: "
+                               + self._lib.error_string(err).decode())
+
+    def ptxas(self) -> dict:
+        """Registers per thread and spilled bytes from the build's
+        ``-Xptxas -v`` log (empty where there is no log)."""
+        regs = re.findall(r"Used (\d+) registers", self.build_log)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", self.build_log)
+        if not regs:
+            return {}
+        return {"registers": max(map(int, regs)),
+                "spill_bytes": max(int(a) + int(b) for a, b in spills)
+                if spills else 0}
+
+
+_PLANS: dict = {}
+_PLANS_LOCK = threading.Lock()
+
+
+def plan_key(taps: LevelTaps, dims, dtype, shard: bool = False) -> tuple:
+    """What a plan's kernel is specialised to."""
+    return (len(dims), tuple(int(d) for d in dims),
+            DTYPE_NAMES.get(dtype, dtype), bool(shard),
+            np.ascontiguousarray(taps.offsets, dtype=np.int32).tobytes(),
+            np.ascontiguousarray(taps.coeffs, dtype=np.float32).tobytes(),
+            int(taps.levels), int(taps.reach))
+
+
+def plan_of(taps: LevelTaps, dims, dtype, shard: bool) -> PlanKernel:
+    """The (possibly unbuilt) :class:`PlanKernel` of one key."""
+    key = plan_key(taps, dims, dtype, shard)
+    with _PLANS_LOCK:
+        if key not in _PLANS:
+            text = codegen.cuda_source(taps, key[1], key[2], key[3])
+            _PLANS[key] = PlanKernel(text, codegen.geometry(taps, key[1]),
+                                     key[3])
+        return _PLANS[key]
+
+
+def plan_kernel(taps: LevelTaps, dims, dtype, shard: bool = False) -> PlanKernel:
+    """The loaded kernel of ``taps`` on a grid (a ghosted slab with
+    ``shard``) of ``dims`` in ``dtype`` (a torch dtype or its name), built
+    by nvcc unless its library is on disk."""
+    return plan_of(taps, dims, dtype, shard).load()
+
+
+def build_plans(requests) -> list:
+    """Build and load the kernels of many plans, ``requests`` being
+    ``(taps, dims, dtype, shard)`` tuples: one nvcc per missing library, up
+    to ``BUILD_WORKERS`` at once.  Every build is tried; the first failure
+    is raised afterwards.  Returns the :class:`PlanKernel` of each request."""
+    plans = [plan_of(*r) for r in requests]
+    todo = list({p.path: p for p in plans if not p.built}.values())
+    errors = []
+
+    def compile_one(plan):
+        try:
+            plan.compile()
+        except Exception as e:      # re-raised below, in the caller's thread
+            errors.append(e)
+
+    if todo:
+        with ThreadPoolExecutor(max_workers=BUILD_WORKERS) as pool:
+            list(pool.map(compile_one, todo))
+    if errors:
+        raise errors[0]
+    return [p.load() for p in plans]
 
 
 # -- plain versions ----------------------------------------------------------
@@ -458,10 +630,11 @@ def overlap_probe_ref(x: torch.Tensor, out: torch.Tensor, variant: str,
 # -- wrappers ----------------------------------------------------------------
 
 class LevelsKernel:
-    """Wrapper of one kernel: ``kernel(src, dst, taps)`` writes the
+    """Wrapper of one levels kernel: ``kernel(src, dst, taps)`` writes the
     interior of ``dst`` in place and returns it.  ``src`` and ``dst``
-    share one dtype of ``BUILDS``.  ``launches`` counts the kernel's
-    launches in both builds (never the plain version's calls).
+    share one dtype of ``BUILDS``.  On CUDA tensors it launches the
+    per-plan kernel (:func:`plan_kernel`, built at first use); ``launches``
+    counts those launches in both dtypes (never the plain version's calls).
 
     A shard-local kernel (``shard=True``) is called as ``kernel(src, dst,
     taps, rows)``: ``src`` and ``dst`` are one shard's slabs and ``rows`` is
@@ -469,8 +642,8 @@ class LevelsKernel:
     frame)``; everything outside it keeps ``dst``'s value."""
 
     route = "cuda"
-    source = "drstencil_tpu_torch/csrc/stencil.cu"
-    library = LIBRARY
+    source = "drstencil_tpu_torch/ops/codegen.py"
+    library = None
     taps_type = LevelTaps
 
     def __init__(self, name: str, ndim: int, plain, replaces: str,
@@ -481,29 +654,21 @@ class LevelsKernel:
         self.replaces = replaces
         self.shard = shard
         self.launches = 0
+        # (id(taps), shape, dtype) -> (taps, its loaded PlanKernel): a
+        # launch does not key the plan again; holding ``taps`` keeps its id
+        self._plans: dict = {}
 
-    def c_entries(self, ptr, i32):
-        """The C entries (one per build) with their ctypes argument types."""
-        return {self.name + suffix: self.argtypes(ptr, i32)
-                for suffix in BUILDS.values()}
-
-    def argtypes(self, ptr, i32):
-        """ctypes argument types of the C entry: src, dst, the grid, the
-        table, levels, reach, frame, the tile, the store range of a shard
-        kernel, the stream."""
-        return ([ptr, ptr] + [i32] * self.ndim + [ptr, ptr, i32]
-                + [i32] * 3 + [i32] * self.ndim
-                + [i32] * (2 if self.shard else 0) + [ptr])
-
-    def _plan_args(self, taps, keep):
-        """The C entry's arguments from the table to the tile; numpy
-        buffers whose pointers are passed go into ``keep``."""
-        if len(taps.coeffs) > MAX_TAPS:
-            raise ValueError(f"{len(taps.coeffs)} taps exceed MAX_TAPS="
-                             f"{MAX_TAPS}")
-        return (*_table_args(taps.offsets, taps.coeffs, keep), taps.levels,
-                taps.reach, taps.frame,
-                *tile_shape(self.ndim, taps.frame, taps.levels))
+    def _launch(self, src, dst, taps, store, stream) -> None:
+        key = (id(taps), tuple(src.shape), src.dtype)
+        hit = self._plans.get(key)
+        if hit is None or hit[0] is not taps:
+            hit = self._plans[key] = (taps, plan_kernel(
+                taps, src.shape, src.dtype, self.shard))
+        plan = hit[1]
+        if plan.geometry.vec and (src.data_ptr() % 16 or dst.data_ptr() % 16):
+            raise ValueError(f"{self.name} reads and writes 16-byte quads: "
+                             "src and dst must be 16-byte aligned")
+        plan.launch(src.data_ptr(), dst.data_ptr(), store, stream)
 
     def __call__(self, src: torch.Tensor, dst: torch.Tensor, taps,
                  rows=None) -> torch.Tensor:
@@ -544,38 +709,46 @@ class LevelsKernel:
         if src.numel() >= 2**31:
             raise ValueError(f"{self.name}: grid of {src.numel()} cells "
                              "exceeds the kernel's int indexing")
-        lib = LIBRARY.get()
-        keep = []
-        args = self._plan_args(taps, keep)
+        if self.shard and store[0] >= store[1]:
+            return dst      # nothing to store: no kernel runs, none is counted
         with torch.cuda.device(src.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = getattr(lib, self.name + BUILDS[src.dtype])(
-                src.data_ptr(), dst.data_ptr(), *src.shape, *args, *store,
-                stream)
-        if err:
-            raise RuntimeError(f"{self.name} launch failed: "
-                               f"{lib.stencil_error_string(err).decode()}")
+            self._launch(src, dst, taps, store,
+                         torch.cuda.current_stream().cuda_stream)
         self.launches += 1
         return dst
 
 
 class FactorLevelsKernel(LevelsKernel):
-    """Wrapper of the factor-mode kernel: ``taps`` is a ``FactorTaps``."""
+    """Wrapper of the factor-mode kernel of ``csrc/stencil.cu`` (C entry
+    ``name``, and ``name + "_bf16"``): ``taps`` is a ``FactorTaps``."""
 
+    source = "drstencil_tpu_torch/csrc/stencil.cu"
+    library = LIBRARY
     taps_type = FactorTaps
 
-    def argtypes(self, ptr, i32):
-        """src, dst, the grid, three tables, levels, frame, the tile, the
+    def c_entries(self, ptr, i32):
+        """The C entries (one per build) with their ctypes argument types:
+        src, dst, the grid, three tables, levels, frame, the tile, the
         stream."""
-        return ([ptr, ptr, i32, i32] + [ptr, ptr, i32] * 3
-                + [i32] * 4 + [ptr])
+        argtypes = ([ptr, ptr, i32, i32] + [ptr, ptr, i32] * 3
+                    + [i32] * 4 + [ptr])
+        return {self.name + suffix: argtypes for suffix in BUILDS.values()}
 
-    def _plan_args(self, taps, keep):
+    def _launch(self, src, dst, taps, store, stream) -> None:
+        lib = LIBRARY.get()
+        keep = []       # the numpy buffers whose pointers are passed
         tables = []
         for offsets, coeffs in (taps.v1, taps.v2, taps.r):
+            if len(coeffs) > MAX_FACTOR_TAPS:
+                raise ValueError(f"{len(coeffs)} taps exceed "
+                                 f"MAX_FACTOR_TAPS={MAX_FACTOR_TAPS}")
             tables += _table_args(offsets, coeffs, keep)
-        return (*tables, taps.levels, taps.frame,
-                *tile_shape(2, taps.frame, taps.levels, factor=True))
+        err = getattr(lib, self.name + BUILDS[src.dtype])(
+            src.data_ptr(), dst.data_ptr(), *src.shape, *tables, taps.levels,
+            taps.frame, *factor_tile_shape(taps.frame), stream)
+        if err:
+            raise RuntimeError(f"{self.name} launch failed: "
+                               f"{lib.stencil_error_string(err).decode()}")
 
 
 def _table_args(offsets, coeffs, keep):
@@ -585,7 +758,6 @@ def _table_args(offsets, coeffs, keep):
     coefs = np.ascontiguousarray(coeffs, dtype=np.float32)
     keep += [offs, coefs]
     return [offs.ctypes.data, coefs.ctypes.data, len(coefs)]
-
 
 
 def _check_fp32_pair(name: str, x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -791,14 +963,15 @@ stencil2d_factor_levels = FactorLevelsKernel(
     "drstencil_tpu/ops/stream.py:683")
 tile2d_fused = Tile2dKernel()
 overlap_probe = OverlapProbeKernel()
-KERNELS = (stencil2d_levels, stencil3d_levels, stencil2d_levels_shard,
-           stencil3d_levels_shard, stencil2d_factor_levels, tile2d_fused,
-           overlap_probe)
+PLAN_KERNELS = (stencil2d_levels, stencil3d_levels, stencil2d_levels_shard,
+                stencil3d_levels_shard)
+KERNELS = PLAN_KERNELS + (stencil2d_factor_levels, tile2d_fused,
+                          overlap_probe)
 
 
 def kernel_for(ndim: int, shard: bool = False) -> LevelsKernel:
     """The levels kernel of ``ndim``-D grids, or its shard-local build."""
-    return KERNELS[ndim - 2 + (2 if shard else 0)]
+    return PLAN_KERNELS[ndim - 2 + (2 if shard else 0)]
 
 
 def reset_launches() -> None:

@@ -13,7 +13,8 @@ frozen frame of width ``H = an.halo`` on every axis:
   from the level two back (``ir/factor.py``).
 
 Here that becomes a level schedule (:func:`level_plan`) handed to one of
-the CUDA kernels of ``ops/kernels.py``.  ``row_frame=False`` (K8) builds
+the CUDA kernels of ``ops/kernels.py``, built per plan from specialised
+text (``ops/codegen.py``).  ``row_frame=False`` (K8) builds
 the shard-local function of the multi-device path on a ghosted slab.  The TPU geometry — tall layout,
 padding, strips, frame slabs — has no counterpart; only its rejection
 rules and the config checks are kept, so that both packages accept and
@@ -211,6 +212,9 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
     the ``(lo, hi)`` range of axis 0, in slab coordinates, that ``f``
     stores: every local row for an interior shard, all but the global frame
     for a shard at the edge of the mesh.  The off-axis frame stays frozen.
+
+    On a CUDA device the plan's kernel is built here (or found in
+    ``build/plans``), not at the first call: a failed build raises now.
     """
     device = resolve_device(device)
     plan = level_plan(an, cfg)
@@ -224,6 +228,8 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
         kernel = kernels.kernel_for(len(dims), shard=not row_frame)
     if not row_frame:
         dims = (dims[0] + 2 * plan.frame,) + dims[1:]
+    if device.type == "cuda" and not kernels.is_factor(plan):
+        kernels.plan_kernel(plan, dims, dtype, shard=not row_frame)
 
     def f(src: torch.Tensor, dst: torch.Tensor, *rows) -> torch.Tensor:
         if src.device != device or dst.device != device:

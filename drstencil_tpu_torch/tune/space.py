@@ -9,12 +9,13 @@ distance fallback, the trapezoid gate, the 2D block levels and their
 gates, the bf16 slab and one ``xla`` candidate per step — and collapses
 the TPU-only axes (``tm``, ``ch``, ``lane_mode``, ``vfuse``, ``jfix``,
 ``prefetch``) to one representative each (:func:`representative`), so
-that no kernel is measured twice under two labels.  The CTA tile is not
-a knob yet: ``ops/kernels.tile_shape`` picks it.
+that no kernel is measured twice under two labels.  The CTA's column and
+segment are not knobs yet: ``ops/kernels.tile_shape`` picks them.
 
 The VMEM budget becomes :func:`smem_estimate`: a config is valid when
 ``analyze``, ``ops/stream.level_plan`` (frame rules, ``MAX_TAPS``) and
-``ops/kernels.tile_shape`` (227 KB of shared memory) all accept it.
+``ops/kernels.tile_shape`` (the window's rings within 227 KB of shared
+memory) all accept it.
 """
 
 from __future__ import annotations
@@ -56,18 +57,18 @@ def representative(cfg: KernelConfig, ndim: int) -> KernelConfig:
 
 def smem_estimate(spec: StencilSpec,
                   cfg: KernelConfig) -> Optional[Candidate]:
-    """The streaming kernel's shared memory per CTA and its tile, or None
-    where the config is invalid for this stencil (the FilterParams role)."""
+    """The streaming kernel's shared memory per CTA (its levels' rings of
+    planes) and its tile (segment and column), or None where the config is
+    invalid for this stencil (the FilterParams role)."""
     try:
         an = analyze(spec, step=cfg.step, distance=cfg.distance,
                      merge_forward=cfg.merge_forward)
         plan = stream_mod.level_plan(an, cfg)
-        factor = kernels.is_factor(plan)
-        tile = kernels.tile_shape(spec.ndim, plan.frame, plan.levels, factor)
+        tile = kernels.tile_shape(plan, spec.dims)
     except ValueError:  # AnalysisError included
         return None
-    return Candidate(cfg=cfg, tile=tile, smem_bytes=kernels.smem_bytes(
-        tile, plan.frame, kernels.n_buffers(plan.levels, factor)))
+    return Candidate(cfg=cfg, tile=tile,
+                     smem_bytes=kernels.smem_bytes(plan, spec.dims))
 
 
 def _step_distance(spec: StencilSpec, step: int) -> Optional[int]:

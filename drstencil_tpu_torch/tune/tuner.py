@@ -1,7 +1,10 @@
 """Autotuner sweeps — the port of ``drstencil_tpu/tune/tuner.py``.
 
 Per config: build → check on the card against the torch gold → time →
-score against the card's roofline.  Artifacts, in ``out_dir``:
+score against the card's roofline.  The kernels of a sweep's candidates
+are built before its first config is measured, one ``nvcc`` per plan, all
+started together (``ops/kernels.build_plans``); an isolated worker finds
+them in ``build/plans``.  Artifacts, in ``out_dir``:
 
 - ``duration.log``     best-so-far (elapsed_s, ms_per_step) lines, and
   every 3D config's time;
@@ -41,7 +44,10 @@ from typing import Optional
 import torch
 
 from drstencil_tpu_torch import emit as emit_mod
+from drstencil_tpu_torch.ir.passes import analyze
 from drstencil_tpu_torch.ir.spec import StencilSpec, load_stc
+from drstencil_tpu_torch.ops import kernels
+from drstencil_tpu_torch.ops import stream as stream_mod
 from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.ops.runner import StencilProgram
 from drstencil_tpu_torch.tune import tuned as tuned_mod
@@ -245,6 +251,33 @@ class Tuner:
         cands.sort(key=lambda c: c.cfg.label() != prior.label())
         return cands[:max_configs] if max_configs else cands
 
+    def prebuild(self, cands, log=print) -> None:
+        """Build the per-plan kernels of ``cands`` ahead of their
+        measurement, so that no config's cap or timed window holds a
+        build.  A plan whose build fails is left to fail again in its
+        config's turn, where the sweep logs it."""
+        try:
+            if stream_mod.resolve_device(self.device).type != "cuda":
+                return
+        except RuntimeError:        # no card: every config will say so
+            return
+        requests = []
+        for cand in cands:
+            cfg = cand.cfg
+            if cfg.variant == "xla" or cfg.factor:
+                continue
+            an = analyze(self.spec, step=cfg.step, distance=cfg.distance,
+                         merge_forward=cfg.merge_forward)
+            requests.append((stream_mod.level_plan(an, cfg), self.spec.dims,
+                             cfg.dtype, False))
+        t0 = time.time()
+        try:
+            kernels.build_plans(requests)
+        except RuntimeError as e:
+            log(f"[{self.spec.name}] a kernel build failed: {str(e)[:200]}")
+        log(f"[{self.spec.name}] {len(requests)} kernels built or found in "
+            f"{time.time() - t0:.1f} s")
+
     @staticmethod
     def _scored(entry: dict):
         ms = tuned_mod.ledger_ms(entry)
@@ -265,6 +298,8 @@ class Tuner:
             if entry.get("status") == "ok":
                 best = min(best, self._scored(entry), key=lambda b: b[0])
 
+        self.prebuild([c for c in cands if c.cfg.label() not in self.ledger],
+                      log)
         tried = errors = 0
         for i, cand in enumerate(cands):
             label = cand.cfg.label()

@@ -5,9 +5,10 @@
   is soft, as in the JAX package: tracing never kills a session, and the
   error is written to ``<trace_dir>/trace_error.txt``.
 - :func:`traffic_model` gives one application's bytes and operations for
-  the Hopper tiling (``ops/kernels.tile_shape``): what the kernel moves,
-  for the tuner's ``modeled_gbps``, and the least the card could take for
-  the same work, for ``chip_smoke.py``'s bound.
+  the kernel that runs (``ops/codegen.Geometry``: columns, segments and
+  their warm-up planes; the factor kernel's haloed tiles): what the kernel
+  moves, for the tuner's ``modeled_gbps``, and the least the card could
+  take for the same work, for ``chip_smoke.py``'s bound.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from drstencil_tpu_torch.ir.passes import Analysis
-from drstencil_tpu_torch.ops import kernels
+from drstencil_tpu_torch.ops import codegen, kernels
 from drstencil_tpu_torch.ops import stream as stream_mod
 from drstencil_tpu_torch.ops.config import KernelConfig
 
@@ -74,8 +75,10 @@ def maybe_trace(trace_dir: str | None):
 class TrafficModel:
     """One application's device-memory traffic and operations.
 
-    ``read_bytes``/``write_bytes`` are what the kernel moves: the haloed
-    tile of every CTA read, the interior written.  ``bound_bytes`` is the
+    ``read_bytes``/``write_bytes`` are what the kernel moves: every CTA's
+    staged planes (its segment plus ``2 * frame`` warm-up planes of its
+    haloed column; the factor kernel's haloed tile) read, the interior
+    written.  ``bound_bytes`` is the
     least the function needs: each input cell read once and each output
     cell written once (2 · item · cells).  ``flops`` is 2 · taps · levels
     · cells (factor mode: 2 · (|V1| + |V2| + |R|) · step · cells), fp32
@@ -114,19 +117,20 @@ def traffic_model(an: Analysis, cfg: KernelConfig) -> TrafficModel:
     item = stream_mod.state_dtype(cfg.dtype).itemsize
     dims = tuple(an.spec.dims)
     ndim, H = len(dims), plan.frame
-    factor = kernels.is_factor(plan)
-    tile = kernels.tile_shape(ndim, H, plan.levels, factor)
-    taps_per_cell = (plan.taps_per_step * an.step if factor
-                     else len(plan.coeffs) * plan.levels)
-    ctas = int(np.prod([-(-d // t) for d, t in zip(dims, tile)]))
-    haloed = int(np.prod([t + 2 * H for t in tile]))
+    if kernels.is_factor(plan):
+        tile = kernels.tile_shape(plan, dims)
+        taps_per_cell = plan.taps_per_step * an.step
+        ctas = int(np.prod([-(-d // t) for d, t in zip(dims, tile)]))
+        read_cells = ctas * int(np.prod([t + 2 * H for t in tile]))
+    else:
+        taps_per_cell = len(plan.coeffs) * plan.levels
+        read_cells = codegen.geometry(plan, dims).read_cells()
     cells = int(np.prod(dims))
     interior = int(np.prod([d - 2 * H for d in dims]))
     return TrafficModel(
-        read_bytes=ctas * haloed * item,
+        read_bytes=read_cells * item,
         write_bytes=interior * item,
         bound_bytes=2 * item * cells,
         flops=2 * taps_per_cell * cells,
-        smem_bytes=kernels.smem_bytes(
-            tile, H, kernels.n_buffers(plan.levels, factor)),
+        smem_bytes=kernels.smem_bytes(plan, dims),
     )

@@ -1,0 +1,47 @@
+// g++ emulation of the little CUDA the generated kernels use
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <limits>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __grid_constant__
+#define __align__(n) alignas(n)
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
+static inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+static inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
+static inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
+struct dim3 { unsigned x, y, z; dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {} };
+static thread_local dim3 threadIdx, blockIdx;
+static thread_local std::barrier<>* g_bar;
+static inline void __syncthreads() { g_bar->arrive_and_wait(); }
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K> static inline cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
+static inline cudaError_t cudaGetLastError() { return 0; }
+static inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+alignas(16) static float g_smem[232448 / 4];
+template <class F> static void emu_launch(dim3 grid, dim3 block, F f) {
+  const unsigned n = block.x * block.y * block.z;
+  for (unsigned bz = 0; bz < grid.z; ++bz) for (unsigned by = 0; by < grid.y; ++by) for (unsigned bx = 0; bx < grid.x; ++bx) {
+    for (auto& v : g_smem) v = std::numeric_limits<float>::quiet_NaN();
+    std::barrier<> bar(n);
+    std::vector<std::thread> ts;
+    for (unsigned t = 0; t < n; ++t) ts.emplace_back([&, t] {
+      threadIdx = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
+      blockIdx = dim3(bx, by, bz); g_bar = &bar;
+      struct Drop { std::barrier<>* b; ~Drop() { b->arrive_and_drop(); } } drop{&bar};
+      f();
+    });
+    for (auto& t : ts) t.join();
+  }
+}
+#define EMU_LAUNCH(kernel, grid, block, ...) emu_launch(grid, block, [&] { kernel(__VA_ARGS__); })

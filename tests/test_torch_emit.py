@@ -298,9 +298,21 @@ def cuda_source_of(text):
 
 
 def literals_of(cuda):
-    """The float literals of ``level_taps`` in the order of its lines."""
-    body = cuda.split("float level_taps(")[1].split("return acc;")[0]
-    return re.findall(r"fmaf\((\S+f), in\[at \+ \((-?\d+)\)\], acc\);", body)
+    """(float literal, tap offset) of every tap of ``level_quad`` in the
+    order of its lines; each line feeds the quad's four outputs with one
+    literal."""
+    body = cuda.split("float4 level_quad(")[1].split("return make_float4")[0]
+    taps = []
+    for line in body.splitlines():
+        lits = re.findall(r"a(\d) = fmaf\((\S+f), [\w.\[\]]+, a(\d)\);", line)
+        if lits:
+            assert [(a, b) for a, _, b in lits] == [(str(j), str(j))
+                                                    for j in range(4)]
+            assert len({lit for _, lit, _ in lits}) == 1
+            off = tuple(int(v) for v in re.search(
+                r"// \((.*)\)$", line).group(1).split(","))
+            taps.append((lits[0][1], off))
+    return taps
 
 
 def test_emitted_text_stands_alone():
@@ -361,18 +373,15 @@ def test_float_literals_are_the_library_float32_coefficients(index):
     cuda = emit_mod.cuda_source(plan, spec.dims, "float32", False, name)
     lits = literals_of(cuda)
     assert len(lits) == len(plan.coeffs)
-    ext = [t + 2 * plan.frame
-           for t in emit_mod.kernels.tile_shape(spec.ndim, plan.frame,
-                                                plan.levels)]
-    for (lit, lin), off, c in zip(lits, plan.offsets.tolist(),
-                                  plan.coeffs.tolist()):
+    for (lit, at), off, c in zip(lits, plan.offsets.tolist(),
+                                 plan.coeffs.tolist()):
         assert lit.startswith("0x") or lit.startswith("-0x")
         assert emit_mod.literal_value(lit) == np.float32(c)     # exact
         assert np.float32(emit_mod.literal_value(lit)) == np.float32(c)
-        assert int(lin) == emit_mod._tile_offset(off, ext)
-    # one fmaf line per tap, not per tap per level
-    assert cuda.count("acc = fmaf(") == len(plan.coeffs)
-    assert cuda.count("level_taps(") == plan.levels + 1
+        assert at == tuple(off)         # the table's sorted order
+    # one fmaf line per tap (four outputs each), not per tap per level
+    assert cuda.count("a0 = fmaf(") == len(plan.coeffs)
+    assert cuda.count("level_quad(") == plan.levels + 1
 
 
 def test_float32_literal_round_trips():

@@ -205,8 +205,10 @@ def test_factor_counts_three_buffers_and_its_own_flops():
     cfg = KernelConfig(step=2, factor=True)
     an = tpasses.analyze(spec, 2)
     plan = tstream.level_plan(an, cfg)
-    assert kernels.n_buffers(plan.levels, factor=True) == 3
-    tile = kernels.tile_shape(2, plan.frame, plan.levels, factor=True)
+    assert kernels.n_buffers(plan, spec.dims) == 3
+    tile = kernels.tile_shape(plan, spec.dims)
+    assert tile == kernels.factor_tile_shape(plan.frame) \
+        == kernels.FACTOR_TILE
     model = traffic_model(an, cfg)
     assert model.smem_bytes == 3 * 4 * (tile[0] + 8) * (tile[1] + 8)
     cells = int(np.prod(spec.dims))

@@ -205,7 +205,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {"drstencil_tpu_torch/emit.py", "drstencil_tpu_torch/cli.py",
             "drstencil_tpu_torch/__main__.py",
             "drstencil_tpu_torch/tuning/exp_tile2d.py",
-            "drstencil_tpu_torch/tuning/exp_overlap.py"} <= rel
+            "drstencil_tpu_torch/tuning/exp_overlap.py",
+            "drstencil_tpu_torch/ops/codegen.py",
+            "drstencil_tpu_torch/utils/kernel_times.py"} <= rel
     assert len(files) >= 32
     for path in files:
         for mod in _imports(path):

@@ -170,8 +170,8 @@ def test_coefficient_fused_table_cap():
 @pytest.mark.parametrize("name", WINNERS)
 def test_level_plan_of_winners(name):
     """Level schedule: L levels of reach H/L; the tap table in sorted
-    order (the JAX to_rowlane order kept N-D); the haloed tile fits the
-    227 KB of shared memory."""
+    order (the JAX to_rowlane order kept N-D); the window's rings fit the
+    227 KB of shared memory, at the test's size and at the ``.stc`` size."""
     jspec = small_spec(name)
     spec, cfg = to_port(jspec, jbest(name))
     an = tpasses.analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
@@ -183,17 +183,49 @@ def test_level_plan_of_winners(name):
     offs = [tuple(o) for o in plan.offsets.tolist()]
     assert offs == sorted(offs)
     assert np.abs(plan.offsets).max() <= plan.reach
-    tile = kernels.tile_shape(spec.ndim, plan.frame, plan.levels)
-    assert kernels.smem_bytes(tile, plan.frame, 2) <= kernels.SMEM_LIMIT
+    from drstencil_tpu_torch.ir.spec import load_stc
+
+    full = load_stc(os.path.join(BENCH_DIR, name + ".stc"))
+    for dims in (spec.dims, full.dims):
+        tile = kernels.tile_shape(plan, dims)
+        assert len(tile) == spec.ndim and min(tile) >= 1
+        assert kernels.smem_bytes(plan, dims) <= kernels.SMEM_LIMIT
+
+
+def _box_plan(ndim, levels, reach):
+    """``levels`` levels of a full box of ``reach`` (any coefficients)."""
+    offsets = np.array(list(np.ndindex(*(2 * reach + 1,) * ndim)),
+                       dtype=np.int32) - reach
+    return kernels.LevelTaps(offsets=offsets,
+                             coeffs=np.ones(len(offsets), np.float32),
+                             levels=levels, reach=reach,
+                             frame=levels * reach)
 
 
 def test_tile_shrinks_to_fit_shared_memory():
-    assert kernels.tile_shape(2, 12, 6) == kernels.TILE_2D
-    tile = kernels.tile_shape(3, 12, 2)
-    assert tile != kernels.TILE_3D
-    assert kernels.smem_bytes(tile, 12, 2) <= kernels.SMEM_LIMIT
+    """The streamed kernels' column shrinks until the levels' rings fit
+    (two CTAs per SM where they can); the factor kernel's tile shrinks
+    until its three haloed tiles fit."""
+    from drstencil_tpu_torch.ops import codegen
+
+    wide = codegen.geometry(_box_plan(2, 6, 2), (8192, 8192))
+    assert wide.tile[1] == codegen.STRIP_2D[0] - 2 * wide.hx
+    assert wide.smem_bytes <= codegen.SMEM_TARGET
+    first = codegen.geometry(_box_plan(3, 1, 1), (512, 512, 512))
+    assert first.tile[1:] == codegen.COLUMNS_3D[0]
+    deep = codegen.geometry(_box_plan(3, 6, 2), (512, 512, 512))
+    assert deep.tile[1:] != codegen.COLUMNS_3D[0]
+    assert deep.smem_bytes <= kernels.SMEM_LIMIT
+    assert kernels.smem_bytes(_box_plan(3, 6, 2), (512, 512, 512)) \
+        == deep.smem_bytes
     with pytest.raises(ValueError, match="too wide"):
-        kernels.tile_shape(3, 200, 2)
+        kernels.tile_shape(_box_plan(3, 100, 2), (512, 512, 512))
+    assert kernels.factor_tile_shape(12) == kernels.FACTOR_TILE
+    tile = kernels.factor_tile_shape(48)
+    assert tile != kernels.FACTOR_TILE
+    assert kernels.factor_smem_bytes(tile, 48) <= kernels.SMEM_LIMIT
+    with pytest.raises(ValueError, match="too wide"):
+        kernels.factor_tile_shape(200)
 
 
 def test_wrapper_checks_arguments():

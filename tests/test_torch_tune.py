@@ -158,10 +158,13 @@ def test_space_distance_fallback_on_odd_step_diagonal():
 
 def test_smem_estimate_filter():
     spec = load_stc(os.path.join(BENCH_DIR, "3d13pt_star.stc"))
-    # frame 16 (radius 2, step 8): even a 1x1x1 tile's two haloed fp32
-    # buffers exceed 227 KB
+    # frame 24 (radius 2, step 12): even the thinnest column's rings of
+    # haloed fp32 planes exceed 227 KB
     assert space.smem_estimate(
-        spec, KernelConfig(step=8, trapezoid=True)) is None
+        spec, KernelConfig(step=12, trapezoid=True)) is None
+    # frame 16 (step 8) still fits, with a column shrunk to do so
+    thin = space.smem_estimate(spec, KernelConfig(step=8, trapezoid=True))
+    assert thin.smem_bytes <= SMEM_LIMIT and thin.tile[1:] < (32, 64)
     # factor mode is 2D-only: rejected, not raised
     assert space.smem_estimate(
         spec, KernelConfig(step=2, factor=True)) is None
@@ -174,9 +177,12 @@ def test_smem_estimate_filter():
     assert not any(c.cfg.factor for c in space.default_space(box))
     # coefficient fusion at step 6: 625 taps per level > MAX_TAPS
     assert space.smem_estimate(box, KernelConfig(step=6)) is None
+    # the deep trapezoid: a 512-wide strip (488 outputs + 2 * 12 halo
+    # columns), six levels each keeping a ring of 2 * 2 + 2 rows, and a
+    # guard quad at each end
     cand = space.smem_estimate(box, KernelConfig(step=6, trapezoid=True))
-    assert cand.tile == (32, 64)
-    assert cand.smem_bytes == 2 * 4 * (32 + 24) * (64 + 24)
+    assert cand.tile[1] == 512 - 2 * 12 and cand.tile[0] >= 2 * 12 + 6
+    assert cand.smem_bytes == 4 * (6 * 6 * 512 + 2 * 4)
     # no reuse at step 1 for a diagonal stencil
     cross = load_stc(os.path.join(BENCH_DIR, "2d5pt_cross.stc"))
     assert space.smem_estimate(cross, KernelConfig(step=1)) is None
@@ -198,6 +204,42 @@ def test_prior_first_is_the_collapsed_tpu_prior(name, first, on_fake_card):
 
 
 # -- tuner ---------------------------------------------------------------------
+
+def test_sweep_builds_its_kernels_ahead(on_fake_card, monkeypatch):
+    """Before a sweep's first config is measured, the per-plan kernels of
+    all its stream candidates go to ``kernels.build_plans`` in one call
+    (on a card; on the CPU nothing is built), and a failed build is left
+    to its config's turn."""
+    from drstencil_tpu_torch.ops import kernels
+    from drstencil_tpu_torch.tune import tuner as tuner_mod
+
+    calls = []
+
+    def fake_build(requests):
+        calls.append(list(requests))
+        raise RuntimeError("nvcc failed (1) on plan.cu")
+
+    monkeypatch.setattr(kernels, "build_plans", fake_build)
+    spec = port_spec("2d5pt_star", (32, 256))
+    t = Tuner(spec, str(on_fake_card / "cpu"), pairs=1, device="cpu")
+    cands = t.candidates()
+    t.prebuild(cands, log=lambda m: None)
+    assert calls == []                      # the CPU runs the plain versions
+
+    monkeypatch.setattr(tuner_mod.stream_mod, "resolve_device",
+                        lambda device=None: torch.device("cuda", 0))
+    logged = []
+    t.prebuild(cands, log=logged.append)
+    (requests,) = calls
+    stream = [c for c in cands if c.cfg.variant == "stream"]
+    assert len(requests) == len(stream) < len(cands)
+    for (plan, dims, dtype, shard), cand in zip(requests, stream):
+        assert (tuple(dims), dtype, shard) == (spec.dims, cand.cfg.dtype,
+                                               False)
+        assert kernels.tile_shape(plan, dims) == cand.tile
+    assert any("build failed" in m for m in logged)
+    assert any(f"{len(stream)} kernels built or found" in m for m in logged)
+
 
 def test_sweep_and_resume(on_fake_card):
     out = str(on_fake_card / "out")
