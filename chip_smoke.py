@@ -13,12 +13,14 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the CUDA kernels from the sources in the checkout (nvcc, into
 ``build/``) and runs, raising on the first failure:
 
-1. environment: the card's name and power limit, versions; the two
-   ``.cu`` libraries of ``drstencil_tpu_torch/csrc`` and the per-plan
-   kernels of every plan known ahead (``ops/codegen.py``'s text: every
-   winner at the ``.stc`` and the reduced size in fp32 and bf16, the
-   shard slabs, factor mode's unfactored programs), one ``nvcc`` each,
-   started together; seconds, registers and spills per plan;
+1. environment: the card's name and power limit, versions; the ``.cu``
+   library of ``drstencil_tpu_torch/csrc`` (the overlap probe) and the
+   per-plan kernels of every plan known ahead (``ops/codegen.py``'s text:
+   every winner at the ``.stc`` and the reduced size in fp32 and bf16, the
+   shard slabs, factor mode's plans and its unfactored programs, and
+   ``tile2d_fused`` for every row of the plain-tile sweep), one ``nvcc``
+   each, started together; seconds, registers, spills and CTAs per SM per
+   plan;
 2. each per-plan kernel against its plain PyTorch version on every tuned
    winner's tap table at the ``.stc`` size (max|kernel - plain| /
    max|plain| <= 1e-5), with the kernel's, the plain version's and a cuDNN
@@ -59,9 +61,10 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
 12. factor mode: ``stencil2d_factor_levels`` (fp32, bf16) against its
     plain version at 8192² on 2d25pt_box, 2d9pt_star and 2d9pt_cross at
     steps 1 and 2, with a cuDNN convolution of the unfactored 5x5 table per
-    step as the yardstick; then ``StencilProgram(spec, KernelConfig(step,
-    factor=True))``: ``time()`` and ``device_check`` beside the unfactored
-    trapezoid of the same step;
+    step as the yardstick, and the plan's registers, spills and CTAs per
+    SM; then ``StencilProgram(spec, KernelConfig(step, factor=True))``:
+    ``time()`` and ``device_check`` beside the unfactored trapezoid of the
+    same step;
 13. ``dryrun_multichip(4, devices=["cuda:0"] * 4)``;
 14. emitted programs: ``python -m drstencil_tpu_torch.cli`` emits one
     standalone program per tuned winner at the ``.stc`` size in fp32, and
@@ -77,8 +80,9 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
     and a ``--gold`` program;
 15. the plain-tile experiment: ``tile2d_fused`` against its plain version
     on the whole padded buffer at 8192² for every row of its ``SWEEP``
-    (pad rows bit-unchanged), timed beside a cuDNN convolution; then the
-    experiment itself (tile ms/step, the port's winner ms/step, ratio);
+    (pad rows bit-unchanged), timed beside a cuDNN convolution, with the
+    table's registers, spills and CTAs per SM; then the experiment itself
+    (tile ms/step, the port's winner ms/step, ratio);
 16. the overlap probe: ``overlap_probe`` A/B/C x depth 1/2 at 8192²
     against its plain version on the written rows (the others
     bit-unchanged), then the experiment (ms/sweep beside the bytes time
@@ -293,11 +297,22 @@ def main(argv=None) -> int:
                 os.path.join(bench, name + ".stc"))
             for step in FACTOR_STEPS:
                 for dtype in ("float32", "bfloat16"):
-                    cfg = KernelConfig(step=step, trapezoid=step > 1,
-                                       dtype=dtype)
-                    out.append((f"{name} {cfg.label()}", (
-                        level_plan(analyze(spec, step), cfg), spec.dims,
-                        dtype, False)))
+                    for factor in (True, False):
+                        cfg = KernelConfig(step=step, factor=factor,
+                                           trapezoid=step > 1 and not factor,
+                                           dtype=dtype)
+                        out.append((f"{name} {cfg.label()}", (
+                            level_plan(analyze(spec, step), cfg), spec.dims,
+                            dtype, False)))
+        for name, sweep in () if mesh_only else exp_tile2d.SWEEP.items():
+            spec = specs.get(name) or load_stc(
+                os.path.join(bench, name + ".stc"))
+            for step, tm in sweep:
+                an = analyze(spec, step=step, require_partition=False)
+                taps = kernels.tile2d_taps(an.fused, an.halo)
+                shape = (spec.dims[0] + 2 * tm, spec.dims[1])
+                out.append((f"{name} tile2d fu{step} tm{tm}",
+                            kernels.tile2d_plan(taps, shape, tm)))
         return out
 
     wanted_plans = plan_requests(bool(args.mesh_devices))
@@ -367,10 +382,9 @@ def main(argv=None) -> int:
             "tile": list(kernels.tile_shape(plan, shape)),
             "smem_bytes": kernels.smem_bytes(plan, shape),
         }
-        if not factor:
-            built = kernels.plan_kernel(plan, shape, tdt, rows is not None)
-            row.update(ctas_per_sm_by_smem=built.geometry.ctas_per_sm,
-                       build_seconds=built.build_seconds, **built.ptxas())
+        built = kernels.plan_kernel(plan, shape, tdt, rows is not None)
+        row.update(ctas_per_sm_by_smem=built.geometry.ctas_per_sm,
+                   build_seconds=built.build_seconds, **built.ptxas())
         ok = True
         for r in ((rows,) if rows is None else (rows, *also_rows)):
             args = () if r is None else (r,)
@@ -977,13 +991,19 @@ def main(argv=None) -> int:
                 kernels.tile2d_fused(src, got, taps, tm)
                 kernels.tile2d_fused.plain(src, want, taps, tm)
                 torch.cuda.synchronize()
+                built = kernels.tile2d_plan(taps, src.shape, tm).load()
                 row = {"name": "tile2d_fused", "stencil": name,
                        "dtype": "float32", "step": step, "tm": tm,
                        "route": kernels.tile2d_fused.route,
                        "source": kernels.tile2d_fused.source,
                        "replaces": kernels.tile2d_fused.replaces,
                        "launches": 0, "taps": taps.ntaps,
-                       "halo": an.halo, "dims": [R + 2 * tm, C]}
+                       "halo": an.halo, "dims": [R + 2 * tm, C],
+                       "tile": list(built.geometry.tile),
+                       "smem_bytes": built.geometry.smem_bytes,
+                       "ctas_per_sm_by_smem": built.geometry.ctas_per_sm,
+                       "build_seconds": built.build_seconds,
+                       **built.ptxas()}
                 ok = within_tolerance(got[tm:tm + R], want[tm:tm + R],
                                       "float32", row)
                 row["pads_unchanged"] = bool(

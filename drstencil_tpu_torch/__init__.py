@@ -6,11 +6,12 @@ The same stencil-compiler framework, run on an NVIDIA Hopper GPU:
   data-reuse partition, halo analysis) live in :mod:`drstencil_tpu_torch.ir`,
   pure Python copies of the JAX package's modules;
 - the streaming stencil kernel of ``drstencil_tpu.ops.stream`` becomes
-  hand-written CUDA kernels (``csrc/stencil.cu``, bound in
-  :mod:`drstencil_tpu_torch.ops.kernels`): a temporally blocked tile in
-  shared memory that never writes a frame cell, one for 2D and one for 3D,
-  with shard-local entries for the multi-device path and a factor-mode
-  kernel for 2D radius-2 operators;
+  hand-written CUDA kernels, written as text per plan
+  (:mod:`drstencil_tpu_torch.ops.codegen`) and built and bound in
+  :mod:`drstencil_tpu_torch.ops.kernels`: levels streamed along axis 0
+  through shared-memory rings that never write a frame cell, for 2D and
+  3D, with shard-local builds for the multi-device path and a factor-mode
+  build for 2D radius-2 operators;
 - :mod:`drstencil_tpu_torch.ops.runner` runs the warmup, timed ping-pong
   and golden-check protocol on torch tensors;
 - :mod:`drstencil_tpu_torch.parallel` decomposes the grid over a mesh of

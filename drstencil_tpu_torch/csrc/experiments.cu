@@ -1,24 +1,6 @@
-// Hand-written Hopper kernels of the two kernel experiments (sm_90a).
-//
-// tile2d_fused replaces the TPU kernel tuning/exp_tile2d.py:78-89 (the Pallas
-// `kernel` closure of build_tile_program, called at :104; K10, the reference's
-// PLAIN-TILE strategy).  What it computes: the step-fused operator applied
-// WHOLE — one level, no carry, no recompute — to a 2D fp32 state kept in a
-// (R + 2*tm, C) padded layout: data rows [tm, tm + R), pad rows never written.
-// out[tm + r][c] = sum over column shifts dj (ascending) of
-//   (sum over that shift's row offsets di (ascending) of coef * in[tm+r+di][(c+dj) mod C])
-// for every data row r and every column c: rows near the edge read the pad
-// rows, and columns wrap around C as the TPU kernel's lane roll does.
-// Design: one CTA owns tm data rows x 64 columns and stages its own haloed
-// window, (tm + 2h) x (64 + 2h) cells, in shared memory (no inter-tile reuse:
-// halo cells are loaded again by the neighbours).  The reference gets its reuse
-// from register blocking, the TPU kernel from a row pre-sum per column shift
-// followed by one lane roll.  Here a thread keeps a short column of RB = 8
-// outputs in registers and walks the table once for all of them: the
-// coefficient, the address arithmetic and the per-shift pre-sum are shared by
-// the 8 outputs, and the per-shift sums are added in the TPU kernel's order.
-// Bound: the data block read once and written once, 2 * 4 * R * C bytes over
-// HBM, or 2 * taps * R * C fp32 flops: by operations from 17 taps up.
+// Hand-written Hopper kernel of the overlap experiment (sm_90a).  The
+// plain-tile experiment's kernel, tile2d_fused, is built per table from
+// specialised text (ops/codegen.tile2d_source).
 //
 // overlap_probe replaces the TPU kernel tuning/exp_overlap.py:59-65 (`kernel`
 // of make(), called at :77, with level() of :35-55; K11).  It is a timing
@@ -43,77 +25,6 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
-
-// ---- tile2d_fused (K10) -----------------------------------------------------
-
-#define TILE2D_MAX_TAPS 256
-#define TILE2D_MAX_GROUPS 64
-#define TILE2D_TX 64   // columns of one CTA
-#define TILE2D_RB 8    // outputs one thread keeps in registers
-
-// The fused taps grouped by column shift, by value: group g holds the taps
-// [start[g], start[g + 1]) with column shift dj[g]; groups ascend in dj and a
-// group's taps ascend in di (exp_tile2d.py's by_dj in sorted order).
-struct Tile2dTable {
-  int ngroups;
-  int dj[TILE2D_MAX_GROUPS];
-  int start[TILE2D_MAX_GROUPS + 1];
-  int di[TILE2D_MAX_TAPS];
-  float coef[TILE2D_MAX_TAPS];
-};
-
-__global__ void __launch_bounds__(256)
-tile2d_fused_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                    int C, int tm, int h,
-                    const __grid_constant__ Tile2dTable t) {
-  extern __shared__ float smem[];
-  const int EX = TILE2D_TX + 2 * h, EY = tm + 2 * h;
-  // buffer row of the window's local row 0, and its (unwrapped) column
-  const int row0 = tm + (int)blockIdx.y * tm - h;
-  const int col0 = (int)blockIdx.x * TILE2D_TX - h;
-  const int tid = threadIdx.x;
-
-  for (int idx = tid; idx < EY * EX; idx += 256) {
-    const int ly = idx / EX, lx = idx - ly * EX;
-    int gc = (col0 + lx) % C;   // columns wrap as the lane roll does
-    if (gc < 0) gc += C;
-    smem[idx] = src[(size_t)(row0 + ly) * C + gc];
-  }
-  __syncthreads();
-
-  const int c = tid % TILE2D_TX;
-  const int gcol = (int)blockIdx.x * TILE2D_TX + c;
-  if (gcol >= C) return;
-  const int lanes = 256 / TILE2D_TX;
-  for (int r0 = (tid / TILE2D_TX) * TILE2D_RB; r0 < tm;
-       r0 += lanes * TILE2D_RB) {
-    float acc[TILE2D_RB];
-    for (int g = 0; g < t.ngroups; ++g) {
-      const int col = c + h + t.dj[g];
-      float sum[TILE2D_RB];
-      int k = t.start[g];
-      {
-        const float coef = t.coef[k];
-        const float* p = smem + (r0 + h + t.di[k]) * EX + col;
-#pragma unroll
-        for (int j = 0; j < TILE2D_RB; ++j) sum[j] = coef * p[j * EX];
-      }
-      for (++k; k < t.start[g + 1]; ++k) {
-        const float coef = t.coef[k];
-        const float* p = smem + (r0 + h + t.di[k]) * EX + col;
-#pragma unroll
-        for (int j = 0; j < TILE2D_RB; ++j)
-          sum[j] = fmaf(coef, p[j * EX], sum[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < TILE2D_RB; ++j)
-        acc[j] = g == 0 ? sum[j] : acc[j] + sum[j];
-    }
-    float* out = dst + (size_t)(tm + (int)blockIdx.y * tm + r0) * C + gcol;
-#pragma unroll
-    for (int j = 0; j < TILE2D_RB; ++j) out[(size_t)j * C] = acc[j];
-  }
-}
 
 // ---- overlap_probe (K11) ----------------------------------------------------
 
@@ -284,55 +195,15 @@ static int dispatch_probe(const float* in, float* out, float* carry, int R,
 
 extern "C" {
 
-// The sizes ops/kernels.py must agree with: 0 = taps, 1 = column shifts of
-// a tile2d table, 2 = tile2d's rows per thread, 3 = its columns per CTA,
-// 4 = the probe's tile width, 5 = its rows per chunk.
+// The sizes ops/kernels.py must agree with: 0 = the probe's tile width,
+// 1 = its rows per chunk.
 int experiments_limit(int what) {
-  const int limits[6] = {TILE2D_MAX_TAPS, TILE2D_MAX_GROUPS, TILE2D_RB,
-                         TILE2D_TX,       PROBE_TW,          PROBE_CH};
-  return what >= 0 && what < 6 ? limits[what] : -1;
+  const int limits[2] = {PROBE_TW, PROBE_CH};
+  return what >= 0 && what < 2 ? limits[what] : -1;
 }
 
 const char* experiments_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
-}
-
-// src and dst are (R + 2*tm, C) fp32 buffers; the table is `ngroups` column
-// shifts dj, their tap ranges start[0..ngroups], and per tap di and coef.
-int tile2d_fused(const float* src, float* dst, int R, int C, int tm, int h,
-                 const int* dj, const int* start, int ngroups, const int* di,
-                 const float* coef, void* stream) {
-  if (tm < 1 || tm % TILE2D_RB || h < 0 || h > tm || R < tm || R % tm ||
-      C < 1 ||
-      ngroups < 1 || ngroups > TILE2D_MAX_GROUPS)
-    return (int)cudaErrorInvalidValue;
-  const int ntaps = start[ngroups];
-  if (start[0] != 0 || ntaps < ngroups || ntaps > TILE2D_MAX_TAPS)
-    return (int)cudaErrorInvalidValue;
-  Tile2dTable t = {};
-  t.ngroups = ngroups;
-  for (int g = 0; g < ngroups; ++g) {
-    if (dj[g] < -h || dj[g] > h || start[g + 1] <= start[g])
-      return (int)cudaErrorInvalidValue;
-    t.dj[g] = dj[g];
-    t.start[g] = start[g];
-  }
-  t.start[ngroups] = ntaps;
-  for (int k = 0; k < ntaps; ++k) {
-    if (di[k] < -h || di[k] > h) return (int)cudaErrorInvalidValue;
-    t.di[k] = di[k];
-    t.coef[k] = coef[k];
-  }
-  const size_t smem =
-      (size_t)(tm + 2 * h) * (TILE2D_TX + 2 * h) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      tile2d_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((C + TILE2D_TX - 1) / TILE2D_TX, R / tm);
-  tile2d_fused_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      src, dst, C, tm, h, t);
-  return (int)cudaGetLastError();
 }
 
 // in is (R, N) for variant 0 and (R + 2*HK, N) for variants 1 and 2; out is

@@ -1,4 +1,4 @@
-"""CUDA text of the streamed levels kernels, specialised to one plan.
+"""CUDA text of the streamed kernels, specialised to one plan.
 
 ``cuda_source`` writes the kernel that replaces the TPU streaming kernel
 ``drstencil_tpu/ops/stream.py:568-803`` (K1-K5, K7, and K8 with a store
@@ -40,7 +40,7 @@ Design (:class:`Geometry` holds the numbers):
   registers stay one row's worth whatever the size of the table.
 - *Summation order.*  Each output cell is one ``fmaf`` chain over the
   table in ``ops/stream.tap_table``'s sorted order from ``acc = 0`` —
-  the arithmetic of the table-driven kernels of ``csrc/stencil.cu``, cell
+  the arithmetic of the table-driven kernels this text replaced, cell
   for cell.
 - *Register windows (2D).*  A 2D strip gives every thread one quad column
   for all rows and levels.  Where ``levels * (2 * reach + 1)`` quads fit
@@ -67,6 +67,26 @@ Design (:class:`Geometry` holds the numbers):
 - Every shape is a ``constexpr``; coefficients are float32 hexadecimal
   literals; no table is passed.  The interface is plain C: ``launch(src,
   dst[, s_lo, s_hi], stream)`` returns ``cudaGetLastError()``.
+
+Factor mode (``FactorTaps``: the TPU kernel's ``factor=True`` build, K6,
+``drstencil_tpu/ops/stream.py:446-474, 683-714``) is the same 2D text with
+two level functions: odd levels apply V1 to the level below, even levels
+V2 to the level below plus R (axis-0 taps only, reach 2) to the level two
+below, each table one ``fmaf`` chain from 0 in its sorted order and the
+two chains joined by one add.  R reads only the thread's own column, so a
+factor plan is always windowed and the levels R reads keep ``4 * reach +
+2`` rows in registers (their newest row is ``2 * reach + 1`` past R's
+output row when it is read); those levels, and the staged source, run one
+row past their range so that the windows shift on to the last output row.
+
+``tile2d_source`` writes ``tile2d_fused``, the kernel of the plain-tile
+experiment (the TPU kernel ``tuning/exp_tile2d.py:78-89``, K10), for one
+table and layout: one level of the fused operator on a padded layout whose
+columns wrap.  It streams a strip of columns down a segment of rows through
+a ring of source rows requested ahead by ``cp.async`` (the wrap decided
+per 16-byte quad), four outputs per thread, in the TPU kernel's order: per
+column shift a multiply then ``fmaf``s in ascending row offset, the
+shifts' sums added in ascending column shift.
 """
 
 from __future__ import annotations
@@ -151,7 +171,9 @@ class Geometry:
     that reach into a neighbour's columns read the rings.  ``ahead`` > 0
     (windowed plans with 16-byte access) is the number
     of source rows requested ahead by ``cp.async`` into ``ahead + 1``
-    staging rows; 0 stages through registers."""
+    staging rows; 0 stages through registers.  A ``factor`` plan (2D,
+    always windowed) keeps ``window_len`` rows of every level and stages
+    ``tail`` source rows past its segment's window."""
 
     dims: Tuple[int, ...]
     frame: int
@@ -167,10 +189,25 @@ class Geometry:
     vec: bool
     window: bool = False
     ahead: int = 0
+    factor: bool = False
 
     @property
     def ndim(self) -> int:
         return len(self.dims)
+
+    @property
+    def window_len(self) -> int:
+        """Rows of each level a windowed thread keeps: the ``2 * reach +
+        1`` a level reads of the one below; a factor plan's V2 level also
+        reads R's ``4 * reach + 1`` rows of the level two below, whose
+        newest row is then one step ahead of them."""
+        return 4 * self.reach + 2 if self.factor else 2 * self.reach + 1
+
+    @property
+    def tail(self) -> int:
+        """Source rows staged past a segment's window (see ``_kernel_text``):
+        1 for a factor plan."""
+        return 1 if self.factor else 0
 
     @property
     def plane_cells(self) -> int:
@@ -238,7 +275,7 @@ class Geometry:
         """Source cells the kernel requests per application: every CTA
         stages its segment's planes plus ``2 * frame`` warm-up planes."""
         seg, n = self.tile[0], self.interior
-        planes = sum(min(seg, n - k * seg) + 2 * self.frame
+        planes = sum(min(seg, n - k * seg) + 2 * self.frame + self.tail
                      for k in range(self.n_segments)) if n else 0
         return self.n_columns * planes * self.plane_cells
 
@@ -260,21 +297,43 @@ def _segment(interior: int, n_cols: int, warmup: int, slots: int) -> int:
     return best[1]
 
 
+def is_factor(plan) -> bool:
+    """Whether ``plan`` is a factor-mode plan (``ops/kernels.FactorTaps``)."""
+    return hasattr(plan, "v2")
+
+
+def window_regs(plan) -> int:
+    """fp32 registers a windowed 2D thread holds in its windows: ``2 *
+    reach + 1`` quads of every level below the last; a factor plan keeps
+    ``4 * reach + 2`` of the levels R reads (0, 2, ..., levels - 2), whose
+    odd neighbours need only their ``2 * reach + 1``."""
+    r, L = int(plan.reach), int(plan.levels)
+    if is_factor(plan):
+        return QUAD * (L // 2) * ((4 * r + 2) + (2 * r + 1))
+    return QUAD * L * (2 * r + 1)
+
+
 def geometry(plan, dims) -> Geometry:
-    """The :class:`Geometry` of ``plan`` (a ``LevelTaps``) on ``dims``."""
+    """The :class:`Geometry` of ``plan`` (a ``LevelTaps`` or, on a 2D grid,
+    a ``FactorTaps``) on ``dims``."""
     dims = tuple(int(d) for d in dims)
     ndim = len(dims)
-    if ndim not in (2, 3) or plan.offsets.shape[1] != ndim:
-        raise ValueError(f"a {plan.offsets.shape[1]}D table on a {ndim}D grid")
+    if ndim not in (2, 3) or plan.ndim != ndim:
+        raise ValueError(f"a {plan.ndim}D table on a {ndim}D grid")
     H, r, L = int(plan.frame), int(plan.reach), int(plan.levels)
+    factor = is_factor(plan)
     hx = _ceil_to(H, QUAD)
     ring = 2 * r + 2
     guard = _ceil_to(r, QUAD)
     nx = _ceil_to(dims[-1], QUAD)
 
     vec = dims[-1] % QUAD == 0
-    # a 2D strip has one quad per thread (see ``threads`` below)
-    window = ndim == 2 and L * (2 * r + 1) * QUAD <= WINDOW_REGS
+    # a 2D strip has one quad per thread (see ``threads`` below); a factor
+    # plan is always windowed, its R reading the level two below in
+    # registers (with fewer CTAs per SM where the windows outgrow
+    # WINDOW_REGS: step 3 and 4)
+    in_regs = ndim == 2 and window_regs(plan) <= WINDOW_REGS
+    window = in_regs or factor
     ahead = AHEAD_2D if window and vec else 0
 
     def smem(ey, ex):
@@ -298,13 +357,18 @@ def geometry(plan, dims) -> Geometry:
                   THREADS_3D if ndim == 3 else STRIP_2D[0] // QUAD)
     g = Geometry(dims=dims, frame=H, reach=r, levels=L, tile=(1,) + column,
                  hx=hx, ey=ey, ex=ex, ring=ring, threads=threads,
-                 min_blocks=1, vec=vec, ahead=ahead, window=window)
+                 min_blocks=1, vec=vec, ahead=ahead, window=window,
+                 factor=factor)
     assert not window or quads <= threads
-    seg = _segment(g.interior, g.n_columns, g.warmup,
-                   SM_COUNT * g.ctas_per_sm)
-    return dataclasses.replace(
-        g, tile=(seg,) + column,
-        min_blocks=min(g.ctas_per_sm, 2 if ndim == 3 else 4))
+    min_blocks = min(g.ctas_per_sm,
+                     2 if ndim == 3 or (factor and not in_regs) else 4)
+    # a factor plan's registers, not its shared memory, decide how many of
+    # its CTAs an SM holds (at step 1 shared memory would admit six, its 88
+    # registers five): its segments fill the ones the launch bound promises
+    slots = SM_COUNT * (min_blocks if factor else g.ctas_per_sm)
+    seg = _segment(g.interior, g.n_columns, g.warmup, slots)
+    return dataclasses.replace(g, tile=(seg,) + column,
+                               min_blocks=min_blocks)
 
 
 # -- the text ------------------------------------------------------------------
@@ -339,14 +403,15 @@ def _plane_name(d0: int) -> str:
     return f"b_{'m' if d0 < 0 else 'p'}{abs(d0)}"
 
 
-def _level_quad(plan, g: Geometry):
-    """Text of ``level_quad``: one level at the quad ``at`` — the table in
-    sorted order, one ``fmaf`` per tap and output cell.  Returns (lines,
-    axis-0 offsets of the planes it reads from shared memory)."""
-    offsets = plan.offsets.tolist()
-    coeffs = plan.coeffs.tolist()
+def _taps_text(offsets, coeffs, g: Geometry, own_base: int, acc: str = "a",
+               window: str = "w", tag: str = ""):
+    """``fmaf`` lines of one tap table at the quad ``at``, one per tap and
+    output cell into ``acc0..acc3``, in table order; with register windows
+    the thread's own quad of axis-0 offset ``d0`` is ``window[d0 +
+    own_base]``.  Returns (lines, axis-0 offsets of the planes read from
+    shared memory)."""
     rows = []       # taps grouped by everything but dx, in table order
-    for off, c in zip(offsets, coeffs):
+    for off, c in zip(offsets.tolist(), coeffs.tolist()):
         key = tuple(off[:-1])
         if not rows or rows[-1][0] != key:
             rows.append((key, []))
@@ -354,8 +419,8 @@ def _level_quad(plan, g: Geometry):
     body, planes = [], set()
     for rid, (key, taps) in enumerate(rows):
         off = key[1] * g.ex if len(key) == 2 else 0
-        own = f"w[{key[0] + g.reach}]" if g.window else None
-        lines, expr = _row_loads(rid, _plane_name(key[0]), off,
+        own = f"{window}[{key[0] + own_base}]" if g.window else None
+        lines, expr = _row_loads(f"{tag}{rid}", _plane_name(key[0]), off,
                                  [dx for dx, _, _ in taps], own)
         if lines:
             planes.add(key[0])
@@ -363,10 +428,29 @@ def _level_quad(plan, g: Geometry):
         for dx, c, full in taps:
             lit = float32_literal(c)
             body.append("  " + " ".join(
-                f"a{j} = fmaf({lit}, {expr[j + dx]}, a{j});"
+                f"{acc}{j} = fmaf({lit}, {expr[j + dx]}, {acc}{j});"
                 for j in range(QUAD)) + f"  // {full}")
+    return body, planes
+
+
+def _quad_fn(name: str, comment, windows, planes, body):
+    """A ``__device__`` function of the quad ``at`` up to its return:
+    ``comment``, the signature, ``a0..a3`` from 0, then ``body``."""
+    args = [f"const float4 (&{w})[WINDOW]" for w in windows]
+    args += [f"const float* __restrict__ {_plane_name(d)}" for d in planes]
+    return comment + [
+        f"__device__ __forceinline__ float4 {name}("
+        + ", ".join(args + ["int at"]) + ") {",
+        "  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;",
+    ] + body
+
+
+def _level_quad(plan, g: Geometry):
+    """Text of ``level_quad``: one level at the quad ``at`` — the table in
+    sorted order, one ``fmaf`` per tap and output cell.  Returns (lines,
+    axis-0 offsets of the planes it reads from shared memory)."""
+    body, planes = _taps_text(plan.offsets, plan.coeffs, g, g.reach)
     planes = sorted(planes)
-    args = [f"const float* __restrict__ {_plane_name(d)}" for d in planes]
     o = ["// One level at the quad `at` of a plane: the tap table in sorted "
          "order, one fmaf",
          "// per tap and output cell; b_m1, b_p0, ... are the planes at "
@@ -374,13 +458,47 @@ def _level_quad(plan, g: Geometry):
     if g.window:
         o.append("// in shared memory, w[k] the thread's own quad at offset "
                  "k - REACH, in registers")
-        args.insert(0, "const float4 (&w)[WINDOW]")
-    o += ["__device__ __forceinline__ float4 level_quad("
-          + ", ".join(args + ["int at"]) + ") {",
-          "  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;"]
-    o += body
+    o = _quad_fn("level_quad", o, ["w"] if g.window else [], planes, body)
     o.append("  return make_float4(a0, a1, a2, a3);")
     o.append("}")
+    return o, planes
+
+
+def _factor_quads(plan, g: Geometry):
+    """Text of factor mode's two levels at the quad ``at``: ``level_v1``
+    (V1 of the level below) and ``level_v2r`` (V2 of the level below plus
+    R of the level two below).  Each table is one ``fmaf`` chain from 0 in
+    its sorted order, and a V2 level adds R's chain to V2's with one add:
+    the arithmetic of ``ops/kernels.stencil2d_factor_levels_ref`` and of
+    the table-driven kernel it replaced.  R's taps lie on the thread's own
+    column, so they read the level two below from its register window.
+    Returns (lines, {level parity: planes read from shared memory})."""
+    r_offsets, r_coeffs = plan.r
+    if r_offsets[:, 1].any():
+        raise EmitError("factor mode's R must lie on axis 0 (dx = 0)")
+    newest = g.window_len - 1
+    o = ["// Factor mode's levels at the quad `at`: w[k] is the thread's own "
+         "quad of the level",
+         "// below in its row k - WINDOW + 1 + REACH relative to the output "
+         "row, w2[k] that",
+         "// of the level two below in row k - WINDOW + 2 + 2 * REACH; b_m1, "
+         "b_p0, ... are the",
+         "// level below's rows at axis-0 offsets -1, 0, ... in shared "
+         "memory."]
+    planes = {}
+    body, p1 = _taps_text(*plan.v1, g, newest - g.reach)
+    planes[1] = sorted(p1)
+    o += _quad_fn("level_v1", ["// odd levels: V1"], ["w"], planes[1], body)
+    o += ["  return make_float4(a0, a1, a2, a3);", "}"]
+    body, p2 = _taps_text(*plan.v2, g, newest - g.reach)
+    rbody, _ = _taps_text(r_offsets, r_coeffs, g, newest - 1 - 2 * g.reach,
+                          acc="c", window="w2", tag="r")
+    planes[0] = sorted(p2)
+    o += _quad_fn("level_v2r", ["// even levels: V2, then R's chain, then "
+                                "one add"], ["w", "w2"], planes[0], body)
+    o.append("  float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;")
+    o += rbody
+    o += ["  return make_float4(a0 + c0, a1 + c1, a2 + c2, a3 + c3);", "}"]
     return o, planes
 
 
@@ -393,15 +511,24 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
         raise ValueError(f"dtype {dtype!r}: the kernels take {DTYPES} state")
     g = geometry(plan, dims)
     ndim, H, L, r = g.ndim, g.frame, g.levels, g.reach
+    if g.factor and shard:
+        raise EmitError("factor mode has no shard-local build")
     bf16 = dtype == "bfloat16"
     d3 = ndim == 3
     dim_names = ("D", "M", "N") if d3 else ("M", "N")
     A0 = dim_names[0]           # the streamed axis' extent
     o = []
-    o.append(f"// {name} [{label}]: {L} level(s) of {len(plan.coeffs)} taps,"
-             f" reach {r}, frame {H}, specialised to this plan.")
-    o.append(f"// stencil{ndim}d_levels{'_shard' if shard else ''}"
-             f"{'_bf16' if bf16 else ''}: streamed along axis 0, "
+    if g.factor:
+        n1, n2, nr = (len(c) for _, c in (plan.v1, plan.v2, plan.r))
+        o.append(f"// {name} [{label}]: {L} levels alternating V1 ({n1} "
+                 f"taps) and V2 ({n2}) + R ({nr}), frame {H},")
+        o.append("// specialised to this plan.")
+        kind = "stencil2d_factor_levels"
+    else:
+        o.append(f"// {name} [{label}]: {L} level(s) of {len(plan.coeffs)} "
+                 f"taps, reach {r}, frame {H}, specialised to this plan.")
+        kind = f"stencil{ndim}d_levels{'_shard' if shard else ''}"
+    o.append(f"// {kind}{'_bf16' if bf16 else ''}: streamed along axis 0, "
              f"{QUAD} outputs per thread along x,")
     o.append("// every shape a constant and the taps unrolled: no table is "
              "passed.")
@@ -435,7 +562,18 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
         o.append("// a thread owns quad threadIdx.x of every row and keeps "
                  "each level's last WINDOW")
         o.append("// rows of it in registers")
-        o.append("constexpr int WINDOW = 2 * REACH + 1;")
+        if g.factor:
+            o.append("// (4 * REACH + 2: a V2 level reads R's rows of the "
+                     "level two below, whose")
+            o.append("// newest row is then 2 * REACH + 1 rows past the "
+                     "output row)")
+            o.append("constexpr int WINDOW = 4 * REACH + 2;")
+            o.append("// source rows staged past the window, so that the "
+                     "windows R reads shift")
+            o.append("// on to the last output row")
+            o.append("constexpr int TAIL = 1;")
+        else:
+            o.append("constexpr int WINDOW = 2 * REACH + 1;")
         o.append("static_assert(STAGE == 1, \"one quad per thread\");")
     if g.ahead:
         o.append(f"constexpr int AHEAD = {g.ahead};  // source planes "
@@ -535,10 +673,22 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
         o.append("  }")
         o.append("}")
         o.append("")
-    quad_text, planes = _level_quad(plan, g)
+    if g.factor:
+        quad_text, by_parity = _factor_quads(plan, g)
+
+        def level_call(t):
+            if t % 2:
+                return "level_v1", [f"w[{t - 1}]"], by_parity[1]
+            return "level_v2r", [f"w[{t - 1}]", f"w[{t - 2}]"], by_parity[0]
+    else:
+        quad_text, planes = _level_quad(plan, g)
+
+        def level_call(t):
+            return ("level_quad", [f"w[{t - 1}]"] if g.window else [],
+                    planes)
     o += quad_text
     o.append("")
-    o += _kernel_text(g, shard, planes)
+    o += _kernel_text(g, shard, level_call)
     o.append("")
     o.append('extern "C" const char* error_string(int err) {')
     o.append("  return cudaGetErrorString((cudaError_t)err);")
@@ -672,9 +822,14 @@ def _store_lines(g: Geometry, y_first: int, pad: str):
     return o
 
 
-def _kernel_text(g: Geometry, shard: bool, planes):
+def _kernel_text(g: Geometry, shard: bool, level_call):
+    """The kernel; ``level_call(t)`` is (function, window arguments,
+    axis-0 offsets of the planes it reads) of level ``t``."""
     d3 = g.ndim == 3
     H, L, r = g.frame, g.levels, g.reach
+    wl = g.window_len
+    # rows of the segment's window staged (a factor plan: TAIL more)
+    feed_end = "n0 + 2 * H" + (" + TAIL" if g.tail else "")
     A0 = "D" if d3 else "M"
     rng = ", int s_lo, int s_hi" if shard else ""
     lo0, hi0 = ("s_lo", "s_hi") if shard else ("H", f"{A0} - H")
@@ -703,7 +858,7 @@ def _kernel_text(g: Geometry, shard: bool, planes):
         o.append("  // the first AHEAD planes of the window, one copy group "
                  "each")
         o.append("  for (int s = 0; s < AHEAD; ++s) {")
-        o.append("    if (s < n0 + 2 * H)")
+        o.append(f"    if (s < {feed_end})")
         o.append(f"      request_plane(src, a0 - H + s, {coords}, staging + "
                  "s * PLANE_QUADS);")
         o.append("    __pipeline_commit();")
@@ -726,12 +881,12 @@ def _kernel_text(g: Geometry, shard: bool, planes):
     o.append("  // computes its plane s - t * (REACH + 1) from planes staged "
              "in earlier steps")
     o.append("  for (int s = 0; s < n0 + 2 * H + LEVELS; ++s) {")
-    o.append("    const bool feed = s < n0 + 2 * H;")
+    o.append(f"    const bool feed = s < {feed_end};")
     if g.ahead:
         o.append("    // request plane s + AHEAD now; plane s, requested "
                  "AHEAD steps ago, is staged")
         o.append("    // after the levels")
-        o.append("    if (s + AHEAD < n0 + 2 * H)")
+        o.append(f"    if (s + AHEAD < {feed_end})")
         o.append(f"      request_plane(src, a0 - H + s + AHEAD, {coords},")
         o.append("                    staging + ((s + AHEAD) % (AHEAD + 1)) "
                  "* PLANE_QUADS);")
@@ -746,10 +901,16 @@ def _kernel_text(g: Geometry, shard: bool, planes):
         y_first, rows, q_first, qw = g.level_region(t)
         nq = rows * qw
         lag = t * (r + 1)
+        fn, windows, planes = level_call(t)
+        # the levels whose windows a V2 level's R reads run one row past
+        # their range (that row is read by no stored cell), so that the
+        # window has shifted on to the last output row
+        past = g.tail if g.factor and t % 2 == 0 and t < L else 0
         o.append(f"    {{  // level {t} of {L}: rows [{y_first}, "
                  f"{y_first + rows}) x quads [{q_first}, {q_first + qw})")
         o.append(f"      const int p = s - {lag};")
-        o.append(f"      if (p >= {t * r} && p < n0 + {2 * H - t * r}) {{")
+        o.append(f"      if (p >= {t * r} && p < n0 + "
+                 f"{2 * H - t * r + past}) {{")
         if planes:
             o.append(f"        const float* const in = smem + {(t - 1)} * "
                      "RING * PLANE;")
@@ -767,14 +928,14 @@ def _kernel_text(g: Geometry, shard: bool, planes):
             # `continue` somewhere to go
             o.append(f"        if (q >= {q_first} && q < {q_first + qw}) "
                      "do {")
-            o.append("          const float4 v = level_quad("
-                     + ", ".join([f"w[{t - 1}]"] + args + ["4 * q"]) + ");")
+            o.append(f"          const float4 v = {fn}("
+                     + ", ".join(windows + args + ["4 * q"]) + ");")
             if t < L:
                 o.append("          *reinterpret_cast<float4*>(out + 4 * q) "
                          "= v;")
                 o += [f"          w[{t}][{k}] = w[{t}][{k + 1}];"
-                      for k in range(2 * r)]
-                o.append(f"          w[{t}][{2 * r}] = v;")
+                      for k in range(wl - 1)]
+                o.append(f"          w[{t}][{wl - 1}] = v;")
             else:
                 o += _store_lines(g, y_first, "          ")
             o.append("        } while (0);")
@@ -789,7 +950,7 @@ def _kernel_text(g: Geometry, shard: bool, planes):
             else:
                 o.append(f"          const int q = i + {q_first};")
                 o.append("          const int at = 4 * q;")
-            call = "level_quad(" + ", ".join(args + ["at"]) + ")"
+            call = f"{fn}(" + ", ".join(args + ["at"]) + ")"
             if t < L:
                 o.append(f"          *reinterpret_cast<float4*>(out + at) = "
                          f"{call};")
@@ -814,14 +975,268 @@ def _kernel_text(g: Geometry, shard: bool, planes):
     if g.window:
         # a narrow strip has more threads than quads
         o.append("      if (q < PLANE_QUADS) {")
-        o += [f"        w[0][{k}] = w[0][{k + 1}];" for k in range(2 * r)]
-        o.append(f"        w[0][{2 * r}] = {own};")
+        o += [f"        w[0][{k}] = w[0][{k + 1}];" for k in range(wl - 1)]
+        o.append(f"        w[0][{wl - 1}] = {own};")
         o.append("      }")
     o.append("    }")
     o.append("    __syncthreads();")
     o.append("  }")
     o.append("}")
     return o
+
+
+# -- tile2d_fused: the plain-tile experiment's kernel -------------------------
+
+@dataclass(frozen=True)
+class TileGeometry:
+    """How ``tile2d_fused``'s text for one table cuts a ``(rows + 2 * tm,
+    C)`` padded layout: a CTA walks a strip of ``tile[1]`` output columns
+    (``hx`` halo columns, the halo ``h`` rounded up to whole quads, on each
+    side, wrapping around ``C``) down a segment of ``tile[0]`` data rows,
+    through a ring of ``ring`` source rows: ``2 * h + 1`` in use, one being
+    read by slower threads, and ``AHEAD_2D`` requested ahead by
+    ``cp.async``.  ``tm`` places the data rows; nothing else depends on
+    it."""
+
+    rows: int
+    cols: int
+    tm: int
+    h: int
+    hx: int
+    ex: int
+    tile: Tuple[int, int]
+    ring: int
+    threads: int
+    min_blocks: int
+    vec: bool
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * self.ring * self.ex
+
+    @property
+    def ctas_per_sm(self) -> int:
+        return max(1, min(SMEM_LIMIT // (self.smem_bytes + SMEM_RESERVED),
+                          2048 // self.threads, 8))
+
+    @property
+    def n_segments(self) -> int:
+        return -(-self.rows // self.tile[0])
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """CTAs: strips, then segments."""
+        return (-(-self.cols // self.tile[1]), self.n_segments)
+
+    def read_cells(self) -> int:
+        """Source cells requested per application: every strip's segments
+        with ``2 * h`` rows of halo each."""
+        return self.grid[0] * (self.rows + 2 * self.h * self.n_segments) \
+            * self.ex
+
+
+def tile2d_geometry(taps, rows: int, cols: int, tm: int) -> TileGeometry:
+    """The :class:`TileGeometry` of ``tile2d_fused`` for ``taps`` (an
+    ``ops/kernels.Tile2dTaps``) on ``rows`` data rows of ``cols`` columns
+    padded by ``tm`` rows."""
+    h = int(taps.halo)
+    hx = _ceil_to(h, QUAD)
+    ring = 2 * h + 2 + AHEAD_2D
+    widths = [min(ex, _ceil_to(cols, QUAD) + 2 * hx) for ex in STRIP_2D
+              if ex - 2 * hx >= QUAD]
+    fits = [ex for ex in widths if 4 * ring * ex <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"halo {h} is too wide for a shared-memory ring")
+    ex = fits[0]
+    threads = _ceil_to(ex // QUAD, 32)
+    g = TileGeometry(rows=rows, cols=cols, tm=tm, h=h, hx=hx, ex=ex,
+                     tile=(1, ex - 2 * hx), ring=ring, threads=threads,
+                     min_blocks=1, vec=cols % QUAD == 0)
+    seg = _segment(rows, g.grid[0], 2 * h, SM_COUNT * g.ctas_per_sm)
+    return dataclasses.replace(g, tile=(seg, ex - 2 * hx),
+                               min_blocks=min(g.ctas_per_sm, 4))
+
+
+def _tile_quad(taps):
+    """Text of ``tile_quad``: the fused table at the output quad ``at`` in
+    the TPU kernel's order (``tuning/exp_tile2d.py:78-89``): per column
+    shift ``dj`` a partial sum over its rows ``di`` — the first term a
+    multiply, the rest ``fmaf`` in ascending ``di`` — and the shifts' sums
+    added in ascending ``dj``.  Rows run outside and shifts inside, so each
+    source row's aligned blocks are loaded once for all shifts and every
+    shift's sum keeps its ``di`` order.  ``__fmul_rn`` keeps a lone product
+    from being contracted into the add that follows it."""
+    groups = [(int(dj), [(int(di), c) for di, c in rows])
+              for dj, rows in taps.groups]
+    dis = sorted({di for _, rows in groups for di, _ in rows})
+    o = ["// The fused table at the output quad `at` of a row: r_m2, r_p0, "
+         "... are the source",
+         "// rows at offsets -2, 0, ... from it in the ring; gK_j is column "
+         "shift K's partial",
+         "// sum of output j (shifts in ascending dj, rows in ascending di)."]
+    args = [f"const float* __restrict__ {_row_name(di)}" for di in dis]
+    o.append("__device__ __forceinline__ float4 tile_quad("
+             + ", ".join(args + ["int at"]) + ") {")
+    o.append("  float " + ", ".join(f"g{k}_{j}" for k in range(len(groups))
+                                    for j in range(QUAD)) + ";")
+    started = set()
+    for rid, di in enumerate(dis):
+        here = [(k, dj, c) for k, (dj, rows) in enumerate(groups)
+                for d, c in rows if d == di]
+        lines, expr = _row_loads(rid, _row_name(di), 0,
+                                 [dj for _, dj, _ in here])
+        o += lines
+        for k, dj, c in here:
+            lit = float32_literal(c)
+            if k in started:
+                terms = [f"g{k}_{j} = fmaf({lit}, {expr[j + dj]}, g{k}_{j});"
+                         for j in range(QUAD)]
+            else:
+                started.add(k)
+                terms = [f"g{k}_{j} = __fmul_rn({lit}, {expr[j + dj]});"
+                         for j in range(QUAD)]
+            o.append("  " + " ".join(terms) + f"  // ({di}, {dj})")
+    o.append("  return make_float4(" + ", ".join(
+        " + ".join(f"g{k}_{j}" for k in range(len(groups)))
+        for j in range(QUAD)) + ");")
+    o.append("}")
+    return o, dis
+
+
+def _row_name(di: int) -> str:
+    return f"r_{'m' if di < 0 else 'p'}{abs(di)}"
+
+
+def tile2d_source(taps, rows: int, cols: int, tm: int,
+                  name: str = "tile2d") -> str:
+    """The CUDA C++ text of ``tile2d_fused`` for one table (``taps``, an
+    ``ops/kernels.Tile2dTaps``) on a ``(rows + 2 * tm, cols)`` fp32 padded
+    layout: data rows ``[tm, tm + rows)`` written, every column, columns
+    wrapping around ``cols``; pad rows read as the layout holds them and
+    never written."""
+    g = tile2d_geometry(taps, rows, cols, tm)
+    quad_text, dis = _tile_quad(taps)
+    o = [f"// {name}: tile2d_fused for one table of {taps.ntaps} taps in "
+         f"{len(taps.groups)} column shifts, halo {g.h},",
+         "// specialised to it: the TPU kernel tuning/exp_tile2d.py:78-89 "
+         "(one level of the",
+         "// step-fused operator on a padded layout, columns wrapping) "
+         "streamed down the rows of",
+         "// a column strip, 4 outputs per thread along x, every shape a "
+         "constant.",
+         "#include <cuda_runtime.h>",
+         "#include <cuda_pipeline.h>",
+         "#include <stddef.h>",
+         "",
+         f"constexpr int R = {rows}, C = {cols}, TM = {tm};"
+         "  // data rows [TM, TM + R) of R + 2 * TM",
+         f"constexpr int H = {g.h};  // the halo: every |di| and |dj|",
+         "// output cells of one CTA: a segment of data rows and the strip "
+         "it walks",
+         f"constexpr int SEG = {g.tile[0]}, TX = {g.tile[1]};",
+         f"constexpr int HX = {g.hx};  // x halo in whole quads",
+         f"constexpr int EX = {g.ex}, QX = EX / 4;  // a staged row",
+         f"constexpr int AHEAD = {AHEAD_2D};  // rows requested ahead of "
+         "their use (cp.async)",
+         "// ring rows: 2 * H + 1 in use, one still read by slower threads, "
+         "AHEAD arriving",
+         "constexpr int ROWS = 2 * H + 2 + AHEAD;",
+         f"constexpr int THREADS = {g.threads}, MIN_BLOCKS = {g.min_blocks};",
+         "constexpr size_t SMEM_BYTES = (size_t)ROWS * EX * sizeof(float);",
+         f"static_assert(SMEM_BYTES == {g.smem_bytes}, \"geometry\");",
+         "",
+         "// Request buffer row g of the strip whose local column 0 is x0 "
+         "into a ring slot,",
+         "// each thread one quad; columns wrap around C as the TPU "
+         "kernel's lane roll does."]
+    o.append("__device__ __forceinline__ void request_row(const float* "
+             "__restrict__ src, int g, int x0,")
+    o.append("                                            float* __restrict__"
+             " slot) {")
+    o.append("  const int i = threadIdx.x;")
+    o.append("  if (i >= QX) return;")
+    o.append("  const float* const row = src + (size_t)g * C;")
+    if g.vec:
+        o.append("  // C is a multiple of 4 and so is x0: a quad wraps "
+                 "whole, 16 bytes aligned")
+        o.append("  const int gx = ((x0 + 4 * i) % C + C) % C;")
+        o.append("  __pipeline_memcpy_async(slot + 4 * i, row + gx, 16);")
+    else:
+        o.append("  // C is no multiple of 4: each cell wraps on its own")
+        o.append("#pragma unroll")
+        o.append("  for (int j = 0; j < 4; ++j) {")
+        o.append("    const int gx = ((x0 + 4 * i + j) % C + C) % C;")
+        o.append("    __pipeline_memcpy_async(slot + 4 * i + j, row + gx, 4);")
+        o.append("  }")
+    o.append("}")
+    o.append("")
+    o += quad_text
+    o.append("")
+    o.append("__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)")
+    o.append("tile2d_kernel(const float* __restrict__ src, float* "
+             "__restrict__ dst) {")
+    o.append("  extern __shared__ float4 smem4[];")
+    o.append("  float* const ring = reinterpret_cast<float*>(smem4);")
+    o.append("  // this CTA's data rows [y0, y1); window row s is buffer "
+             "row g0 + s")
+    o.append("  const int y0 = (int)blockIdx.y * SEG;")
+    o.append("  const int y1 = y0 + SEG < R ? y0 + SEG : R;")
+    o.append("  const int n = y1 - y0 + 2 * H;")
+    o.append("  const int g0 = TM + y0 - H;  // >= 0: H <= TM")
+    o.append("  const int x0 = (int)blockIdx.x * TX - HX;  // unwrapped "
+             "column of local 0")
+    o.append("  const int q = threadIdx.x;  // this thread's quad of "
+             "every row")
+    o.append("  for (int s = 0; s < AHEAD; ++s) {")
+    o.append("    if (s < n) request_row(src, g0 + s, x0, ring + s * EX);")
+    o.append("    __pipeline_commit();")
+    o.append("  }")
+    o.append("  for (int s = 0; s < n; ++s) {")
+    o.append("    if (s + AHEAD < n)")
+    o.append("      request_row(src, g0 + s + AHEAD, x0, ring + ((s + AHEAD)"
+             " % ROWS) * EX);")
+    o.append("    __pipeline_commit();")
+    o.append("    // all but the AHEAD newest copy groups have landed: row s "
+             "is in, from every thread")
+    o.append("    __pipeline_wait_prior(AHEAD);")
+    o.append("    __syncthreads();")
+    o.append("    if (s < 2 * H || q < HX / 4 || q >= (HX + TX) / 4) "
+             "continue;")
+    o.append("    const int c = s - H;  // the output's window row")
+    for di in dis:
+        o.append(f"    const float* const {_row_name(di)} = ring + "
+                 f"((c + ({di})) % ROWS) * EX;")
+    o.append("    const float4 v = tile_quad(" + ", ".join(
+        [_row_name(di) for di in dis] + ["4 * q"]) + ");")
+    o.append("    const int gx = x0 + 4 * q;")
+    o.append("    float* const cell = dst + (size_t)(g0 + c) * C + gx;")
+    if g.vec:
+        o.append("    if (gx < C) *reinterpret_cast<float4*>(cell) = v;")
+    else:
+        for j, f in enumerate("xyzw"):
+            o.append(f"    if (gx + {j} < C) cell[{j}] = v.{f};")
+    o.append("  }")
+    o.append("}")
+    o.append("")
+    o.append('extern "C" const char* error_string(int err) {')
+    o.append("  return cudaGetErrorString((cudaError_t)err);")
+    o.append("}")
+    o.append("")
+    o.append('extern "C" int launch(const void* src, void* dst, '
+             "void* stream) {")
+    o.append("  cudaError_t err = cudaFuncSetAttribute(")
+    o.append("      tile2d_kernel, "
+             "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);")
+    o.append("  if (err != cudaSuccess) return (int)err;")
+    o.append("  const dim3 block(THREADS);")
+    o.append("  const dim3 grid(" + ", ".join(map(str, g.grid)) + ");"
+             "  // strips, then segments")
+    o.append("  tile2d_kernel<<<grid, block, SMEM_BYTES, "
+             "(cudaStream_t)stream>>>(")
+    o.append("      (const float*)src, (float*)dst);")
+    o.append("  return (int)cudaGetLastError();")
+    o.append("}")
+    return "\n".join(o)
 
 
 def source_hash(text: str) -> str:

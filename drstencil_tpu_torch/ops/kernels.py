@@ -16,36 +16,34 @@ has a CUDA kernel here:
   alternating the 3x3 tables V1 and V2 of ``ir/factor.py``, where every
   V2 level adds the residual R read from the level two back.
 
-The four levels kernels are built PER PLAN: ``ops/codegen.cuda_source``
-writes the kernel as text specialised to one (grid dims, storage type,
-shard, tap table, levels, reach) — streamed along axis 0,
-four outputs per thread, every shape a constant, the taps unrolled — and
-:func:`plan_kernel` compiles it with ``nvcc`` for ``sm_90a`` into
-``build/plans/plan_<hash>.so`` at first use (the hash is of text + flags;
-a later process finds the library on disk; about 6 s per plan).
-:func:`build_plans` compiles many plans at once, one ``nvcc`` each, all
-started together; callers that know their plans ahead use it.  A failed
-build raises with the compiler's log; nothing falls back.
-
-``csrc/stencil.cu`` holds the factor kernel: table-driven, one CTA per
-haloed tile, three rotating tiles in shared memory.
-
-``csrc/experiments.cu`` holds the kernels of the two kernel experiments
-(``tuning/exp_tile2d.py``, ``tuning/exp_overlap.py``), fp32 only:
+The kernels of the two kernel experiments (``tuning/exp_tile2d.py``,
+``tuning/exp_overlap.py``) are fp32 only:
 
 - ``tile2d_fused`` (the TPU kernel ``tuning/exp_tile2d.py:78-89``): the
   step-fused operator applied whole to a ``(R + 2 * tm, C)`` padded state,
   columns wrapping around ``C``, pad rows never written;
 - ``overlap_probe`` (``tuning/exp_overlap.py:59-65``): a timing probe,
   ``level(level(window))`` per strip with a synchronous or a ``cp.async``
-  prefetched window load.
+  prefetched window load, in ``csrc/experiments.cu``.
+
+Every kernel but the probe is built PER PLAN: ``ops/codegen`` writes it as
+text specialised to one plan — for the levels and factor kernels (grid
+dims, storage type, shard, tap tables, levels, reach: ``cuda_source``),
+for ``tile2d_fused`` (layout and table: ``tile2d_source``) — streamed
+along axis 0, four outputs per thread, every shape a constant, the taps
+unrolled; :func:`plan_kernel` compiles it with ``nvcc`` for ``sm_90a``
+into ``build/plans/plan_<hash>.so`` at first use (the hash is of text +
+flags; a later process finds the library on disk; about 6 s per plan).
+:func:`build_plans` compiles many plans at once, one ``nvcc`` each, all
+started together; callers that know their plans ahead use it.  A failed
+build raises with the compiler's log; nothing falls back.
 
 Each streaming kernel runs on float32 and on bfloat16 state: the bf16
 build loads as fp32, computes every level in fp32 and rounds once at the
 store, as the TPU kernel does with ``dtype="bfloat16"``.
 
-The two ``.cu`` sources are compiled like the plans, one library per
-source.  Everything is loaded with ``ctypes`` through a plain C interface.
+``csrc/experiments.cu`` is compiled like the plans, into one library.
+Everything is loaded with ``ctypes`` through a plain C interface.
 Each wrapper dispatches on the tensors' device: CPU tensors go to the
 plain PyTorch version beside it (``*_ref``), CUDA tensors launch the
 kernel or raise.  Each wrapper's ``launches`` counts its kernel's launches
@@ -73,36 +71,29 @@ import torch.nn.functional as F
 from drstencil_tpu_torch.ops import codegen
 from drstencil_tpu_torch.ops.codegen import NVCC_FLAGS, SMEM_LIMIT
 
-# Most taps of one level: the size of experiments.cu's by-value tap table,
-# checked at load; ``level_plan`` holds every plan to it.
+# Most taps of one level (and of a tile2d table): ``level_plan`` holds
+# every plan to it, a bound on the text a plan unrolls.
 MAX_TAPS = 256
-# Size of each of the factor kernel's three by-value tables (stencil.cu
-# MAX_FACTOR_TAPS), checked at load.
-MAX_FACTOR_TAPS = 9
-# Storage dtypes the kernels take, with the suffix of their C entry point
-# in ``csrc/stencil.cu`` and their name in a plan's text.
+# Storage dtypes the kernels take, with the suffix of their name in the
+# kernel rows and their name in a plan's text.
 BUILDS = {torch.float32: "", torch.bfloat16: "_bf16"}
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-# Output tile (y, x) per CTA of the factor kernel, before shrinking to fit
-# SMEM_LIMIT, and the haloed fp32 tiles it rotates in shared memory (the
-# level two back stays alive).
-FACTOR_TILE = (32, 64)
-FACTOR_BUFFERS = 3
 # nvcc processes :func:`build_plans` runs at once
 BUILD_WORKERS = 16
-# csrc/experiments.cu's sizes, checked at load: the column shifts of a tile2d
-# table, the outputs a tile2d thread keeps in registers (tm is a multiple),
-# tile2d's columns per CTA, the probe's columns per tile and rows per chunk.
+# tile2d_fused's tables and layouts, as the experiment makes them: at most
+# this many column shifts, and a pad height ``tm`` that is a multiple of
+# TILE2D_TM_MULTIPLE (the JAX experiment's 8-row blocks) dividing the data
+# rows.  The kernel's geometry depends on neither.
 TILE2D_MAX_GROUPS = 64
-TILE2D_ROWS_PER_THREAD = 8
-TILE2D_COLS = 64
+TILE2D_TM_MULTIPLE = 8
+# csrc/experiments.cu's sizes, checked at load: the probe's columns per tile
+# and rows per chunk.
 PROBE_TILE = 128
 PROBE_CHUNK = 8
 # the probe's variants, in the order of the C entry's `variant` argument
 PROBE_VARIANTS = ("A", "B", "C")
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "stencil.cu")
 EXPERIMENTS_SOURCE = os.path.join(_PKG_DIR, "csrc", "experiments.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 PLAN_DIR = os.path.join(BUILD_DIR, "plans")
@@ -154,49 +145,24 @@ def is_factor(taps) -> bool:
 
 
 def tile_shape(taps, dims) -> Tuple[int, ...]:
-    """Output cells of one CTA of the kernel that runs ``taps`` on a grid
-    of ``dims``: ``(SEG, TX)`` / ``(SEG, TY, TX)`` — a segment of axis 0
-    and the column it walks (``codegen.Geometry``) — for a ``LevelTaps``,
-    the factor kernel's ``(TY, TX)`` tile for a ``FactorTaps``."""
-    if is_factor(taps):
-        return factor_tile_shape(taps.frame)
+    """Output cells of one CTA of the kernel that runs ``taps`` (a
+    ``LevelTaps`` or a ``FactorTaps``) on a grid of ``dims``: ``(SEG, TX)``
+    / ``(SEG, TY, TX)`` — a segment of axis 0 and the column it walks
+    (``codegen.Geometry``)."""
     return codegen.geometry(taps, dims).tile
 
 
 def n_buffers(taps, dims) -> int:
     """fp32 planes (rows in 2D) one CTA keeps in shared memory: a ring of
     ``2 * reach + 2`` per level, plus the staging rows of a plan that
-    copies ahead; the factor kernel's three tiles."""
-    if is_factor(taps):
-        return FACTOR_BUFFERS
+    copies ahead."""
     return codegen.geometry(taps, dims).window_planes
 
 
 def smem_bytes(taps, dims) -> int:
     """Shared memory of one CTA, fp32 whatever the storage dtype (the
     load converts)."""
-    if is_factor(taps):
-        return factor_smem_bytes(tile_shape(taps, dims), taps.frame)
     return codegen.geometry(taps, dims).smem_bytes
-
-
-def factor_tile_shape(frame: int) -> Tuple[int, int]:
-    """Output tile of one CTA of the factor kernel: ``FACTOR_TILE`` halved
-    (y first) until its ``FACTOR_BUFFERS`` haloed tiles fit in shared
-    memory."""
-    tile = list(FACTOR_TILE)
-    while factor_smem_bytes(tile, frame) > SMEM_LIMIT:
-        axis = next((a for a, t in enumerate(tile) if t > 1), None)
-        if axis is None:
-            raise ValueError(
-                f"frame {frame} is too wide for a shared-memory tile")
-        tile[axis] //= 2
-    return tuple(tile)
-
-
-def factor_smem_bytes(tile, frame: int) -> int:
-    """``FACTOR_BUFFERS`` haloed fp32 tiles."""
-    return FACTOR_BUFFERS * 4 * int(np.prod([t + 2 * frame for t in tile]))
 
 
 # -- build -------------------------------------------------------------------
@@ -244,23 +210,12 @@ class _Library:
         return lib
 
 
-def _check_stencil(lib) -> None:
-    lib.stencil_max_factor_taps.argtypes = []
-    lib.stencil_max_factor_taps.restype = ctypes.c_int
-    lib.stencil_error_string.argtypes = [ctypes.c_int]
-    lib.stencil_error_string.restype = ctypes.c_char_p
-    if lib.stencil_max_factor_taps() != MAX_FACTOR_TAPS:
-        raise RuntimeError("stencil.cu MAX_FACTOR_TAPS disagrees with "
-                           "kernels.py")
-
-
 def _check_experiments(lib) -> None:
     lib.experiments_limit.argtypes = [ctypes.c_int]
     lib.experiments_limit.restype = ctypes.c_int
     lib.experiments_error_string.argtypes = [ctypes.c_int]
     lib.experiments_error_string.restype = ctypes.c_char_p
-    want = (MAX_TAPS, TILE2D_MAX_GROUPS, TILE2D_ROWS_PER_THREAD, TILE2D_COLS,
-            PROBE_TILE, PROBE_CHUNK)
+    want = (PROBE_TILE, PROBE_CHUNK)
     got = tuple(lib.experiments_limit(i) for i in range(len(want)))
     if got != want:
         raise RuntimeError(f"experiments.cu limits {got} disagree with "
@@ -294,43 +249,29 @@ def _nvcc() -> str:
     return path
 
 
-LIBRARY = _Library(SOURCE, "libdrstencil", _check_stencil)
 EXPERIMENTS = _Library(EXPERIMENTS_SOURCE, "libexperiments",
                        _check_experiments)
 
 
 def build():
-    """Build (or find) and load both kernel libraries, one ``nvcc`` each,
-    started together; returns ``(LIBRARY, EXPERIMENTS)``, each with
-    ``build_seconds``, ``path`` and the compiler's ``build_log``."""
-    libs = (LIBRARY, EXPERIMENTS)
-    errors = []
-
-    def load(lib):
-        try:
-            lib.get()
-        except Exception as e:      # re-raised below, in the caller's thread
-            errors.append(e)
-
-    threads = [threading.Thread(target=load, args=(lib,)) for lib in libs]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    return libs
+    """Build (or find) and load the ``.cu`` library; returns
+    ``(EXPERIMENTS,)``, with its ``build_seconds``, ``path`` and the
+    compiler's ``build_log``."""
+    EXPERIMENTS.get()
+    return (EXPERIMENTS,)
 
 
 # -- the per-plan kernels -------------------------------------------------------
 
 class PlanKernel:
-    """One plan's kernel: its text, where its library lies, and, once
-    loaded, its ``launch``.  ``build_log`` is what nvcc printed when the
-    library was built (kept beside it, so a later process reads it too);
-    ``build_seconds`` is None when the library was found on disk."""
+    """One plan's kernel: its text, its geometry (``codegen.Geometry``, or
+    ``codegen.TileGeometry`` for ``tile2d_fused``), where its library lies,
+    and, once loaded, its ``launch``.  ``build_log`` is what nvcc printed
+    when the library was built (kept beside it, so a later process reads
+    it too); ``build_seconds`` is None when the library was found on
+    disk."""
 
-    def __init__(self, text: str, geometry: codegen.Geometry, shard: bool):
+    def __init__(self, text: str, geometry, shard: bool):
         self.text = text
         self.geometry = geometry
         self.shard = shard
@@ -398,27 +339,46 @@ _PLANS: dict = {}
 _PLANS_LOCK = threading.Lock()
 
 
-def plan_key(taps: LevelTaps, dims, dtype, shard: bool = False) -> tuple:
-    """What a plan's kernel is specialised to."""
+def plan_key(taps, dims, dtype, shard: bool = False) -> tuple:
+    """What a plan's kernel is specialised to (``taps`` a ``LevelTaps`` or
+    a ``FactorTaps``)."""
+    tables = ((taps.v1, taps.v2, taps.r) if is_factor(taps)
+              else ((taps.offsets, taps.coeffs),))
     return (len(dims), tuple(int(d) for d in dims),
             DTYPE_NAMES.get(dtype, dtype), bool(shard),
-            np.ascontiguousarray(taps.offsets, dtype=np.int32).tobytes(),
-            np.ascontiguousarray(taps.coeffs, dtype=np.float32).tobytes(),
+            *(b for offsets, coeffs in tables for b in (
+                np.ascontiguousarray(offsets, dtype=np.int32).tobytes(),
+                np.ascontiguousarray(coeffs, dtype=np.float32).tobytes())),
             int(taps.levels), int(taps.reach))
 
 
-def plan_of(taps: LevelTaps, dims, dtype, shard: bool) -> PlanKernel:
-    """The (possibly unbuilt) :class:`PlanKernel` of one key."""
-    key = plan_key(taps, dims, dtype, shard)
+def _plan(key, make) -> PlanKernel:
+    """The :class:`PlanKernel` of ``key``, made by ``make()`` at first."""
     with _PLANS_LOCK:
         if key not in _PLANS:
-            text = codegen.cuda_source(taps, key[1], key[2], key[3])
-            _PLANS[key] = PlanKernel(text, codegen.geometry(taps, key[1]),
-                                     key[3])
+            _PLANS[key] = make()
         return _PLANS[key]
 
 
-def plan_kernel(taps: LevelTaps, dims, dtype, shard: bool = False) -> PlanKernel:
+def plan_of(taps, dims, dtype, shard: bool) -> PlanKernel:
+    """The (possibly unbuilt) :class:`PlanKernel` of one key."""
+    key = plan_key(taps, dims, dtype, shard)
+    return _plan(key, lambda: PlanKernel(
+        codegen.cuda_source(taps, key[1], key[2], key[3]),
+        codegen.geometry(taps, key[1]), key[3]))
+
+
+def tile2d_plan(taps: "Tile2dTaps", shape, tm: int) -> PlanKernel:
+    """The (possibly unbuilt) ``tile2d_fused`` kernel of ``taps`` on a
+    ``(R + 2 * tm, C)`` padded layout of ``shape``."""
+    rows, cols = int(shape[0]) - 2 * tm, int(shape[1])
+    key = ("tile2d", rows, cols, tm, taps.groups, taps.halo)
+    return _plan(key, lambda: PlanKernel(
+        codegen.tile2d_source(taps, rows, cols, tm),
+        codegen.tile2d_geometry(taps, rows, cols, tm), False))
+
+
+def plan_kernel(taps, dims, dtype, shard: bool = False) -> PlanKernel:
     """The loaded kernel of ``taps`` on a grid (a ghosted slab with
     ``shard``) of ``dims`` in ``dtype`` (a torch dtype or its name), built
     by nvcc unless its library is on disk."""
@@ -426,11 +386,13 @@ def plan_kernel(taps: LevelTaps, dims, dtype, shard: bool = False) -> PlanKernel
 
 
 def build_plans(requests) -> list:
-    """Build and load the kernels of many plans, ``requests`` being
-    ``(taps, dims, dtype, shard)`` tuples: one nvcc per missing library, up
-    to ``BUILD_WORKERS`` at once.  Every build is tried; the first failure
-    is raised afterwards.  Returns the :class:`PlanKernel` of each request."""
-    plans = [plan_of(*r) for r in requests]
+    """Build and load the kernels of many plans, each request a
+    :class:`PlanKernel` (e.g. :func:`tile2d_plan`'s) or a ``(taps, dims,
+    dtype, shard)`` tuple: one nvcc per missing library, up to
+    ``BUILD_WORKERS`` at once.  Every build is tried; the first failure is
+    raised afterwards.  Returns the :class:`PlanKernel` of each request."""
+    plans = [r if isinstance(r, PlanKernel) else plan_of(*r)
+             for r in requests]
     todo = list({p.path: p for p in plans if not p.built}.values())
     errors = []
 
@@ -719,45 +681,10 @@ class LevelsKernel:
 
 
 class FactorLevelsKernel(LevelsKernel):
-    """Wrapper of the factor-mode kernel of ``csrc/stencil.cu`` (C entry
-    ``name``, and ``name + "_bf16"``): ``taps`` is a ``FactorTaps``."""
+    """Wrapper of the factor-mode kernel: ``taps`` is a ``FactorTaps``;
+    the kernel is ``codegen.cuda_source``'s text for it, built per plan."""
 
-    source = "drstencil_tpu_torch/csrc/stencil.cu"
-    library = LIBRARY
     taps_type = FactorTaps
-
-    def c_entries(self, ptr, i32):
-        """The C entries (one per build) with their ctypes argument types:
-        src, dst, the grid, three tables, levels, frame, the tile, the
-        stream."""
-        argtypes = ([ptr, ptr, i32, i32] + [ptr, ptr, i32] * 3
-                    + [i32] * 4 + [ptr])
-        return {self.name + suffix: argtypes for suffix in BUILDS.values()}
-
-    def _launch(self, src, dst, taps, store, stream) -> None:
-        lib = LIBRARY.get()
-        keep = []       # the numpy buffers whose pointers are passed
-        tables = []
-        for offsets, coeffs in (taps.v1, taps.v2, taps.r):
-            if len(coeffs) > MAX_FACTOR_TAPS:
-                raise ValueError(f"{len(coeffs)} taps exceed "
-                                 f"MAX_FACTOR_TAPS={MAX_FACTOR_TAPS}")
-            tables += _table_args(offsets, coeffs, keep)
-        err = getattr(lib, self.name + BUILDS[src.dtype])(
-            src.data_ptr(), dst.data_ptr(), *src.shape, *tables, taps.levels,
-            taps.frame, *factor_tile_shape(taps.frame), stream)
-        if err:
-            raise RuntimeError(f"{self.name} launch failed: "
-                               f"{lib.stencil_error_string(err).decode()}")
-
-
-def _table_args(offsets, coeffs, keep):
-    """(pointer to int32 offsets, pointer to fp32 coeffs, count) of one
-    tap table; the contiguous copies are kept alive in ``keep``."""
-    offs = np.ascontiguousarray(offsets, dtype=np.int32)
-    coefs = np.ascontiguousarray(coeffs, dtype=np.float32)
-    keep += [offs, coefs]
-    return [offs.ctypes.data, coefs.ctypes.data, len(coefs)]
 
 
 def _check_fp32_pair(name: str, x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -791,25 +718,22 @@ class Tile2dKernel:
     the fused operator ``taps`` (a ``Tile2dTaps``) to the data rows of the
     ``(R + 2 * tm, C)`` fp32 buffer ``src`` and writes data rows ``[tm, tm +
     R)`` of ``dst`` in place; pad rows keep ``dst``'s bits.  ``tm`` is the
-    pad height of the layout and the number of rows one CTA owns (a CTA
-    takes ``tm`` rows x ``TILE2D_COLS`` columns); it is a multiple of
-    ``TILE2D_ROWS_PER_THREAD`` that divides ``R``, with ``halo <= tm``."""
+    pad height of the layout: a multiple of ``TILE2D_TM_MULTIPLE`` that
+    divides ``R``, with ``halo <= tm``.  On CUDA tensors it launches
+    ``codegen.tile2d_source``'s text for (layout, table), built per plan
+    (:func:`tile2d_plan`); ``launches`` counts those launches."""
 
     name = "tile2d_fused"
     route = "cuda"
-    source = "drstencil_tpu_torch/csrc/experiments.cu"
+    source = "drstencil_tpu_torch/ops/codegen.py"
     replaces = "tuning/exp_tile2d.py:78"
-    library = EXPERIMENTS
+    library = None
     plain = staticmethod(tile2d_fused_ref)
 
     def __init__(self):
         self.launches = 0
-
-    def c_entries(self, ptr, i32):
-        """src, dst, R, C, tm, h, the table (dj, start, ngroups, di, coef),
-        the stream."""
-        return {self.name: [ptr, ptr, i32, i32, i32, i32, ptr, ptr, i32,
-                            ptr, ptr, ptr]}
+        # (id(taps), shape, tm) -> (taps, its loaded PlanKernel)
+        self._plans: dict = {}
 
     def __call__(self, src: torch.Tensor, dst: torch.Tensor, taps: Tile2dTaps,
                  tm: int) -> torch.Tensor:
@@ -818,11 +742,11 @@ class Tile2dKernel:
                              f"shape, got {tuple(src.shape)} and "
                              f"{tuple(dst.shape)}")
         R, C = src.shape[0] - 2 * tm, src.shape[1]
-        if (tm < 1 or tm % TILE2D_ROWS_PER_THREAD or R < tm or R % tm
+        if (tm < 1 or tm % TILE2D_TM_MULTIPLE or R < tm or R % tm
                 or taps.halo > tm):
             raise ValueError(
                 f"{self.name}: tm={tm} must be a multiple of "
-                f"{TILE2D_ROWS_PER_THREAD} that divides the {R} data rows "
+                f"{TILE2D_TM_MULTIPLE} that divides the {R} data rows "
                 f"and is at least the halo {taps.halo}")
         if len(taps.groups) > TILE2D_MAX_GROUPS or taps.ntaps > MAX_TAPS:
             raise ValueError(
@@ -831,26 +755,18 @@ class Tile2dKernel:
                 f"{TILE2D_MAX_GROUPS}")
         if _check_fp32_pair(self.name, src, dst):
             return self.plain(src, dst, taps, tm)
-        smem = 4 * (tm + 2 * taps.halo) * (TILE2D_COLS + 2 * taps.halo)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"{self.name}: a window of {smem} bytes exceeds "
-                             "shared memory; use a smaller tm")
-        lib = EXPERIMENTS.get()
-        dj = np.array([g[0] for g in taps.groups], dtype=np.int32)
-        start = np.cumsum([0] + [len(g[1]) for g in taps.groups]
-                          ).astype(np.int32)
-        di = np.array([d for g in taps.groups for d, _ in g[1]],
-                      dtype=np.int32)
-        coef = np.array([c for g in taps.groups for _, c in g[1]],
-                        dtype=np.float32)
+        key = (id(taps), tuple(src.shape), tm)
+        hit = self._plans.get(key)
+        if hit is None or hit[0] is not taps:
+            hit = self._plans[key] = (taps, tile2d_plan(taps, src.shape,
+                                                        tm).load())
+        plan = hit[1]
+        if plan.geometry.vec and (src.data_ptr() % 16 or dst.data_ptr() % 16):
+            raise ValueError(f"{self.name} reads and writes 16-byte quads: "
+                             "src and dst must be 16-byte aligned")
         with torch.cuda.device(src.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tile2d_fused(
-                src.data_ptr(), dst.data_ptr(), R, C, tm, taps.halo,
-                dj.ctypes.data, start.ctypes.data, len(dj), di.ctypes.data,
-                coef.ctypes.data, stream)
-        if err:
-            raise _launch_error(self.name, err)
+            plan.launch(src.data_ptr(), dst.data_ptr(), (),
+                        torch.cuda.current_stream().cuda_stream)
         self.launches += 1
         return dst
 

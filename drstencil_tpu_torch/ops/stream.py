@@ -228,7 +228,7 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
         kernel = kernels.kernel_for(len(dims), shard=not row_frame)
     if not row_frame:
         dims = (dims[0] + 2 * plan.frame,) + dims[1:]
-    if device.type == "cuda" and not kernels.is_factor(plan):
+    if device.type == "cuda":
         kernels.plan_kernel(plan, dims, dtype, shard=not row_frame)
 
     def f(src: torch.Tensor, dst: torch.Tensor, *rows) -> torch.Tensor:

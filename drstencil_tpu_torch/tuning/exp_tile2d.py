@@ -7,14 +7,15 @@ haloed window and applies the FUSED multi-step operator whole — one level,
 no inter-tile reuse, halo cells loaded again by the neighbours.  The JAX
 package measured its Pallas incarnation on a TPU; a TPU's answer does not
 carry over, so this module measures the strategy on the card with the CUDA
-kernel ``tile2d_fused`` (``csrc/experiments.cu``).
+kernel ``tile2d_fused`` (``ops/codegen.tile2d_source``'s text, one build
+per table and layout).
 
 Ping-pong state lives in a ``(R + 2 * tm, C)`` padded layout, as in the JAX
 experiment: data rows ``[tm, tm + R)``, pad rows never written, so the
 output of one application is directly the input of the next.  On this card
-``tm`` is the pad height of the layout and the number of rows one CTA owns
-(a CTA takes ``tm`` rows x 64 columns).  Unwritten pads and wrapping columns
-mean the boundary band diverges from the interior-update golden semantics by
+``tm`` is only the pad height of the layout: a CTA streams a strip of
+columns down a segment of rows whatever ``tm``.  Unwritten pads and
+wrapping columns mean the boundary band diverges from the interior-update golden semantics by
 ``halo`` cells per application: the differential check compares an interior
 inset past the creep, like ``StencilProgram.device_check``'s deep-gold path.
 

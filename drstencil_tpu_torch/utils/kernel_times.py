@@ -1,10 +1,14 @@
 """Time the single-device kernels on tuned winners' plans at the ``.stc``
 size — the quick way to hold two trees against each other on one card.
 
-    python -m drstencil_tpu_torch.utils.kernel_times [tag] [stencil ...]
+    python -m drstencil_tpu_torch.utils.kernel_times [tag] [row ...]
         [--dtype bfloat16] [--check]
 
-``all`` names every tuned winner.  Run it from the root of each tree
+A row is a tuned winner's name (``all`` names every one), or ``factor``:
+``stencil2d_factor_levels`` on 2d25pt_box, 2d9pt_star and 2d9pt_cross at
+steps 1 and 2 (``<stencil> factor s<step>``), or ``tile2d``: ``tile2d_fused``
+on the plain-tile experiment's sweep (``<stencil> tile2d fu<step>
+tm<tm>``, fp32 only).  Run it from the root of each tree
 within one call on the card, in turns (parent, change, change, parent):
 times compare only within one call.  It builds the plans' kernels first
 (one ``nvcc`` each, started together; seconds, registers and spills are
@@ -15,9 +19,12 @@ result on a state drawn from seed 0: two trees whose digests agree on one
 card computed every cell alike.  ``--check`` adds the relative error
 against the plain version.
 
-The file needs of its tree only ``kernels.kernel_for``, ``level_plan`` and
-the tuned table, so a copy of it also runs in a tree whose kernels are not
-built per plan (it then has no build to report).
+The file needs of its tree only ``kernels.kernel_for``, ``level_plan``,
+the tuned table, and for the factor and tile2d rows
+``kernels.stencil2d_factor_levels``, ``kernels.tile2d_taps``,
+``kernels.tile2d_fused`` and the experiment's sweep, so a copy of it also
+runs in a tree whose kernels are not built per plan (it then has no build
+to report for them).
 """
 
 from __future__ import annotations
@@ -33,12 +40,62 @@ import torch
 from drstencil_tpu_torch.ir.passes import analyze
 from drstencil_tpu_torch.ir.spec import load_stc
 from drstencil_tpu_torch.ops import kernels
+from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.ops.stream import (level_plan, resolve_device,
                                             state_dtype)
 from drstencil_tpu_torch.tune.tuned import (BENCH_DIR, best_config,
                                             tuned_entries)
+from drstencil_tpu_torch.tuning.exp_tile2d import SWEEP
 
 DEFAULT_STENCILS = ("2d5pt_star", "2d9pt_star", "3d7pt_star", "3d13pt_star")
+FACTOR_STENCILS = ("2d25pt_box", "2d9pt_star", "2d9pt_cross")
+FACTOR_STEPS = (1, 2)
+
+
+def expand(names) -> list:
+    """Row names: ``all``, ``factor`` and ``tile2d`` expanded."""
+    out = []
+    for n in names:
+        if n == "all":
+            out += sorted(tuned_entries())
+        elif n == "factor":
+            out += [f"{s} factor s{k}" for s in FACTOR_STENCILS
+                    for k in FACTOR_STEPS]
+        elif n == "tile2d":
+            out += [f"{s} tile2d fu{k} tm{tm}" for s, sweep in SWEEP.items()
+                    for k, tm in sweep]
+        else:
+            out.append(n)
+    return out
+
+
+def row_plan(name: str, dtype: str = "float32"):
+    """(kernel, its taps, src shape, extra call arguments, plan request)
+    of a row; the request is what ``kernels.build_plans`` builds, None
+    where this tree does not build the row's kernel per plan."""
+    stencil, *kind = name.split()
+    spec = load_stc(os.path.join(BENCH_DIR, stencil + ".stc"))
+    if not kind:
+        spec, plan = winner_plan(stencil, dtype)
+        return (kernels.kernel_for(spec.ndim), plan, spec.dims, (),
+                (plan, spec.dims, dtype, False))
+    if kind[0] == "factor":
+        step = int(kind[1][1:])
+        plan = level_plan(analyze(spec, step), KernelConfig(
+            step=step, factor=True, dtype=dtype))
+        kernel = kernels.stencil2d_factor_levels
+        return (kernel, plan, spec.dims, (),
+                None if getattr(kernel, "library", None) else
+                (plan, spec.dims, dtype, False))
+    if dtype != "float32":
+        raise ValueError(f"{name}: tile2d_fused is fp32 only")
+    step, tm = int(kind[1][2:]), int(kind[2][2:])
+    an = analyze(spec, step=step, require_partition=False)
+    taps = kernels.tile2d_taps(an.fused, an.halo)
+    shape = (spec.dims[0] + 2 * tm, spec.dims[1])
+    return (kernels.tile2d_fused, taps, shape, (tm,),
+            kernels.tile2d_plan(taps, shape, tm)
+            if hasattr(kernels, "tile2d_plan") else None)
 
 
 def winner_plan(name: str, dtype: str = "float32"):
@@ -69,34 +126,38 @@ def launch_ms(fn, device) -> float:
 
 def kernel_row(name: str, device, dtype: str = "float32",
                check: bool = False) -> dict:
-    """The kernel on ``name``'s winner plan at the ``.stc`` size."""
-    spec, plan = winner_plan(name, dtype)
-    kernel = kernels.kernel_for(spec.ndim)
+    """The kernel of row ``name`` at the ``.stc`` size (a tile2d row's
+    source has zero pad rows)."""
+    kernel, plan, shape, extra, _ = row_plan(name, dtype)
     gen = torch.Generator(device=device).manual_seed(0)
-    src = (torch.rand(spec.dims, device=device, generator=gen)
+    src = (torch.rand(shape, device=device, generator=gen)
            * 100.0).to(state_dtype(dtype))
+    if extra:
+        tm = extra[0]
+        src[:tm] = 0
+        src[-tm:] = 0
     dst = torch.zeros_like(src)
-    row = {"ms": launch_ms(lambda: kernel(src, dst, plan), device)}
+    row = {"ms": launch_ms(lambda: kernel(src, dst, plan, *extra), device)}
     # bit patterns: numpy has no bfloat16
     bits = dst.view(torch.int16 if dtype == "bfloat16" else torch.int32)
     row["sha256"] = hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()
     if check:
         want = torch.zeros_like(src)
-        kernel.plain(src, want, plan)
+        kernel.plain(src, want, plan, *extra)
         row["rel_err"] = float((dst.float() - want.float()).abs().max()
                                / want.float().abs().max())
     return row
 
 
 def build_report(names, dtype: str) -> dict:
-    """Build the winners' per-plan kernels together; per stencil the nvcc
-    seconds (None when found on disk), tile, shared memory, registers and
-    spills.  Empty in a tree whose kernels are not built per plan."""
+    """Build the rows' per-plan kernels together; per row the nvcc seconds
+    (None when found on disk), tile, shared memory, registers and spills.
+    Empty for the rows whose kernels this tree does not build per plan."""
     if not hasattr(kernels, "build_plans"):
         return {}
-    plans = kernels.build_plans(
-        [(plan, spec.dims, dtype, False) for spec, plan in
-         (winner_plan(n, dtype) for n in names)])
+    requests = {n: row_plan(n, dtype)[4] for n in names}
+    names = [n for n in names if requests[n] is not None]
+    plans = kernels.build_plans([requests[n] for n in names])
     return {n: {"seconds": p.build_seconds, "tile": list(p.geometry.tile),
                 "smem_bytes": p.geometry.smem_bytes, **p.ptxas()}
             for n, p in zip(names, plans)}
@@ -105,13 +166,12 @@ def build_report(names, dtype: str) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("tag", nargs="?", default="tree")
-    ap.add_argument("stencils", nargs="*", default=list(DEFAULT_STENCILS))
+    ap.add_argument("rows", nargs="*", default=list(DEFAULT_STENCILS))
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--check", action="store_true")
     args = ap.parse_args(argv)
-    names = (sorted(tuned_entries()) if args.stencils == ["all"]
-             else args.stencils)
+    names = expand(args.rows)
     device = resolve_device(None)   # the card: raises where there is none
     t0 = time.perf_counter()
     kernels.build()

@@ -6,7 +6,7 @@
   error is written to ``<trace_dir>/trace_error.txt``.
 - :func:`traffic_model` gives one application's bytes and operations for
   the kernel that runs (``ops/codegen.Geometry``: columns, segments and
-  their warm-up planes; the factor kernel's haloed tiles): what the kernel
+  their warm-up planes): what the kernel
   moves, for the tuner's ``modeled_gbps``, and the least the card could
   take for the same work, for ``chip_smoke.py``'s bound.
 """
@@ -77,7 +77,7 @@ class TrafficModel:
 
     ``read_bytes``/``write_bytes`` are what the kernel moves: every CTA's
     staged planes (its segment plus ``2 * frame`` warm-up planes of its
-    haloed column; the factor kernel's haloed tile) read, the interior
+    haloed column, and a factor plan's one tail plane) read, the interior
     written.  ``bound_bytes`` is the
     least the function needs: each input cell read once and each output
     cell written once (2 · item · cells).  ``flops`` is 2 · taps · levels
@@ -116,15 +116,10 @@ def traffic_model(an: Analysis, cfg: KernelConfig) -> TrafficModel:
     plan = stream_mod.level_plan(an, cfg)
     item = stream_mod.state_dtype(cfg.dtype).itemsize
     dims = tuple(an.spec.dims)
-    ndim, H = len(dims), plan.frame
-    if kernels.is_factor(plan):
-        tile = kernels.tile_shape(plan, dims)
-        taps_per_cell = plan.taps_per_step * an.step
-        ctas = int(np.prod([-(-d // t) for d, t in zip(dims, tile)]))
-        read_cells = ctas * int(np.prod([t + 2 * H for t in tile]))
-    else:
-        taps_per_cell = len(plan.coeffs) * plan.levels
-        read_cells = codegen.geometry(plan, dims).read_cells()
+    H = plan.frame
+    taps_per_cell = (plan.taps_per_step * an.step if kernels.is_factor(plan)
+                     else len(plan.coeffs) * plan.levels)
+    read_cells = codegen.geometry(plan, dims).read_cells()
     cells = int(np.prod(dims))
     interior = int(np.prod([d - 2 * H for d in dims]))
     return TrafficModel(

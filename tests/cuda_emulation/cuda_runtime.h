@@ -18,6 +18,8 @@ struct alignas(8) uint2 { unsigned x, y; };
 static inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 static inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 static inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
+// a product never contracted into a following add (g++ runs with -ffp-contract=off)
+static inline float __fmul_rn(float a, float b) { return a * b; }
 struct dim3 { unsigned x, y, z; dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {} };
 static thread_local dim3 threadIdx, blockIdx;
 static thread_local std::barrier<>* g_bar;

@@ -540,32 +540,39 @@ def test_wrapper_keys_a_plan_once(monkeypatch):
                        dst, plan, (), 7)
 
 
-def test_only_the_factor_kernel_is_table_driven():
-    """``csrc/stencil.cu`` exports the factor kernel's two builds and its
-    table size, which ``ops/kernels`` holds itself to; every levels kernel
-    comes from ``codegen``'s text."""
-    with open(kernels.SOURCE) as f:
+def test_every_levels_factor_and_tile2d_kernel_comes_from_codegen():
+    """No kernel is table-driven any more: the levels kernels, the factor
+    kernel and ``tile2d_fused`` are ``codegen``'s text, built per plan (no
+    ``.cu`` library behind them, no table passed at launch); ``csrc`` keeps
+    only the overlap probe."""
+    csrc = os.path.dirname(kernels.EXPERIMENTS_SOURCE)
+    assert sorted(os.listdir(csrc)) == ["experiments.cu"]
+    with open(kernels.EXPERIMENTS_SOURCE) as f:
         text = f.read()
     exported = re.findall(r"^(?:int|const char\*) (\w+)\(", text, flags=re.M)
-    assert sorted(exported) == [
-        "stencil2d_factor_levels", "stencil2d_factor_levels_bf16",
-        "stencil_error_string", "stencil_max_factor_taps"]
-    assert f"#define MAX_FACTOR_TAPS {kernels.MAX_FACTOR_TAPS}\n" in text
+    assert sorted(exported) == ["experiments_error_string",
+                                "experiments_limit", "overlap_probe"]
+    assert "tile2d" not in text.split("// overlap_probe replaces")[1]
     by_source = {}
     for k in kernels.KERNELS:
         by_source.setdefault(k.source, []).append(k.name)
     assert by_source == {
         "drstencil_tpu_torch/ops/codegen.py": [
             "stencil2d_levels", "stencil3d_levels", "stencil2d_levels_shard",
-            "stencil3d_levels_shard"],
-        "drstencil_tpu_torch/csrc/stencil.cu": ["stencil2d_factor_levels"],
-        "drstencil_tpu_torch/csrc/experiments.cu": ["tile2d_fused",
-                                                    "overlap_probe"]}
-    factor = kernels.stencil2d_factor_levels
-    entries = factor.c_entries("p", "i")
-    assert sorted(entries) == ["stencil2d_factor_levels",
-                               "stencil2d_factor_levels_bf16"]
-    assert all(len(a) == 2 + 2 + 9 + 4 + 1 for a in entries.values())
+            "stencil3d_levels_shard", "stencil2d_factor_levels",
+            "tile2d_fused"],
+        "drstencil_tpu_torch/csrc/experiments.cu": ["overlap_probe"]}
+    for k in kernels.KERNELS:
+        assert (k.library is None) == k.source.endswith("codegen.py")
+    spec, cfg, an, plan = plan_of("2d25pt_box", KernelConfig(step=2,
+                                                             factor=True))
+    fac = codegen.cuda_source(plan, spec.dims, "float32", False)
+    taps = kernels.tile2d_taps(analyze(spec, 2).fused, 4)
+    tile = codegen.tile2d_source(taps, 256, 512, 32)
+    for cuda in (fac, tile):
+        assert ('extern "C" int launch(const void* src, void* dst, '
+                "void* stream)") in cuda
+        assert "Table" not in cuda and "coef" not in cuda
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

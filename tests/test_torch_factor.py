@@ -136,7 +136,7 @@ def test_factored_program_matches_golden(name, step):
 
 
 def test_factored_program_step3_and_odd_grid():
-    """Step 3 (six levels, three rotating tiles) on a grid that no tile
+    """Step 3 (six levels) on a grid that no tile
     divides, against the golden and the unfactored program."""
     prog = port_program("2d25pt_box", dims=(67, 131), step=3)
     max_err, _ = prog.check(seed=1, pairs=1)
@@ -201,16 +201,27 @@ def test_factor_has_no_shard_local_build():
 
 
 def test_factor_counts_three_buffers_and_its_own_flops():
+    """The factor kernel's shared memory (once three haloed tiles, now a
+    ring of four rows per level and the staging rows of the streamed
+    text) and its own flops."""
+    from drstencil_tpu_torch.ops import codegen
+
     spec = port_spec(small_spec("2d25pt_box"))
     cfg = KernelConfig(step=2, factor=True)
     an = tpasses.analyze(spec, 2)
     plan = tstream.level_plan(an, cfg)
-    assert kernels.n_buffers(plan, spec.dims) == 3
+    g = codegen.geometry(plan, spec.dims)
+    assert g.factor and g.window and g.ring == 4
+    assert kernels.n_buffers(plan, spec.dims) \
+        == plan.levels * 4 + codegen.AHEAD_2D + 1
     tile = kernels.tile_shape(plan, spec.dims)
-    assert tile == kernels.factor_tile_shape(plan.frame) \
-        == kernels.FACTOR_TILE
+    assert tile == g.tile and tile[1] == spec.dims[1]
     model = traffic_model(an, cfg)
-    assert model.smem_bytes == 3 * 4 * (tile[0] + 8) * (tile[1] + 8)
+    assert model.smem_bytes == 4 * (2 * g.guard + kernels.n_buffers(
+        plan, spec.dims) * g.ex)
+    # every segment stages its rows, 2 * frame warm-up rows and the tail
+    assert model.read_bytes == 4 * g.ex * (
+        spec.dims[0] - 2 * plan.frame + g.n_segments * (2 * plan.frame + 1))
     cells = int(np.prod(spec.dims))
     assert model.flops == 2 * plan.taps_per_step * 2 * cells
     assert plan.taps_per_step <= 9 + 9 + 5

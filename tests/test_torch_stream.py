@@ -204,8 +204,8 @@ def _box_plan(ndim, levels, reach):
 
 def test_tile_shrinks_to_fit_shared_memory():
     """The streamed kernels' column shrinks until the levels' rings fit
-    (two CTAs per SM where they can); the factor kernel's tile shrinks
-    until its three haloed tiles fit."""
+    (two CTAs per SM where they can); so does the factor kernel's strip,
+    the same text's."""
     from drstencil_tpu_torch.ops import codegen
 
     wide = codegen.geometry(_box_plan(2, 6, 2), (8192, 8192))
@@ -220,12 +220,24 @@ def test_tile_shrinks_to_fit_shared_memory():
         == deep.smem_bytes
     with pytest.raises(ValueError, match="too wide"):
         kernels.tile_shape(_box_plan(3, 100, 2), (512, 512, 512))
-    assert kernels.factor_tile_shape(12) == kernels.FACTOR_TILE
-    tile = kernels.factor_tile_shape(48)
-    assert tile != kernels.FACTOR_TILE
-    assert kernels.factor_smem_bytes(tile, 48) <= kernels.SMEM_LIMIT
+    assert kernels.tile_shape(_factor_plan(6), (8192, 8192))[1] \
+        == codegen.STRIP_2D[0] - 2 * 8
+    tile = kernels.tile_shape(_factor_plan(48), (8192, 8192))
+    assert tile[1] < codegen.STRIP_2D[0] - 2 * 48
+    assert kernels.smem_bytes(_factor_plan(48), (8192, 8192)) \
+        <= kernels.SMEM_LIMIT
     with pytest.raises(ValueError, match="too wide"):
-        kernels.factor_tile_shape(200)
+        kernels.tile_shape(_factor_plan(200), (8192, 8192))
+
+
+def _factor_plan(levels):
+    """A factor plan of ``levels`` levels of reach 1 (tables of ones)."""
+    v = (np.array([(d, s) for d in (-1, 0, 1) for s in (-1, 0, 1)],
+                  np.int32), np.ones(9, np.float32))
+    r = (np.array([(d, 0) for d in (-2, -1, 0, 1, 2)], np.int32),
+         np.ones(5, np.float32))
+    return kernels.FactorTaps(v1=v, v2=v, r=r, levels=levels, reach=1,
+                              frame=levels)
 
 
 def test_wrapper_checks_arguments():

@@ -169,10 +169,12 @@ def test_smem_estimate_filter():
     assert space.smem_estimate(
         spec, KernelConfig(step=2, factor=True)) is None
     box = load_stc(os.path.join(BENCH_DIR, "2d25pt_box.stc"))
-    # on a 2D radius-2 table it is valid: three tiles of the haloed tile
+    # on a 2D radius-2 table it is valid: a 512-wide strip (504 outputs +
+    # 2 * 4 halo columns), four levels each keeping a ring of 4 rows, the
+    # 9 staging rows of the cp.async ring, and a guard quad at each end
     cand = space.smem_estimate(box, KernelConfig(step=2, factor=True))
-    assert cand.tile == (32, 64)
-    assert cand.smem_bytes == 3 * 4 * (32 + 8) * (64 + 8)
+    assert cand.tile[1] == 512 - 2 * 4
+    assert cand.smem_bytes == 4 * ((4 * 4 + 9) * 512 + 2 * 4)
     # ... and still not swept by the default space
     assert not any(c.cfg.factor for c in space.default_space(box))
     # coefficient fusion at step 6: 625 taps per level > MAX_TAPS
