@@ -85,8 +85,11 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
     (tile ms/step, the port's winner ms/step, ratio);
 16. the overlap probe: ``overlap_probe`` A/B/C x depth 1/2 at 8192²
     against its plain version on the written rows (the others
-    bit-unchanged), then the experiment (ms/sweep beside the bytes time
-    and the compute-only time);
+    bit-unchanged, variant C's carry equal), with its registers, shared
+    memory, CTAs per SM and CTA count, the bound beside the time to move
+    the variant's whole windows, and two cuDNN convolutions (the two
+    levels) as the yardstick; then the experiment (ms/sweep beside the
+    bytes time and the compute-only time);
 17. one ``{"kernels": [...]}`` line (every kernel a driven path launches,
     fp32 and bf16 rows, with that path's count), the card line, then the ok
     line.
@@ -1053,17 +1056,51 @@ def main(argv=None) -> int:
         report["tile2d"] = rows
         return rows
 
+    def small_probe_check():
+        """Phase 16 first: every variant and depth on small grids with a
+        ragged tail (R = 200, TM = 48), one tile that wraps onto itself (N
+        = PROBE_TILE) and four tiles, against plain."""
+        R, TM, HK = 200, 48, 8
+        written = torch.zeros(R, dtype=torch.bool, device=dev)
+        for i in range(R // TM):
+            written[i * TM:i * TM + TM - 4 * HK] = True
+        for N in (kernels.PROBE_TILE, 4 * kernels.PROBE_TILE):
+            for variant in kernels.PROBE_VARIANTS:
+                shape = (R, N) if variant == "A" else (R + 2 * HK, N)
+                x = torch.rand(shape, generator=gen, device=dev) * 100.0
+                fill = torch.rand((R, N), generator=gen, device=dev) - 0.5
+                for depth in exp_overlap.DEPTHS:
+                    got, want = fill.clone(), fill.clone()
+                    _, carry = kernels.overlap_probe(x, got, variant, depth,
+                                                     TM, HK)
+                    _, want_carry = kernels.overlap_probe.plain(
+                        x, want, variant, TM, HK, kernels.overlap_probe.n_ctas(
+                            dev, (R, N), variant, depth, TM, HK))
+                    torch.cuda.synchronize()
+                    row = {"name": "overlap_probe small", "variant": variant,
+                           "depth": depth, "dims": [R, N]}
+                    ok = (within_tolerance(got[written], want[written],
+                                           "float32", row)
+                          and torch.equal(got[~written], fill[~written])
+                          and (carry is None if want_carry is None
+                               else torch.equal(carry, want_carry)))
+                    print("overlap small " + json.dumps(row))
+                    if not ok:
+                        raise RuntimeError(f"overlap_probe failed: {row}")
+
     def overlap_phase():
         """Phase 16.  Returns ``overlap_probe``'s rows, one per variant and
         depth."""
+        small_probe_check()
         R, N, TM, HK = (exp_overlap.R, exp_overlap.N, exp_overlap.TM,
                         exp_overlap.HK)
         n_strips, wrote = R // TM, TM - 4 * HK
         written = torch.zeros(R, dtype=torch.bool, device=dev)
         for i in range(n_strips):
             written[i * TM:i * TM + wrote] = True
-        # yardstick: one level as one cuDNN convolution (columns wrapped by
-        # circular padding) on every strip's block
+        # yardstick: the two levels as two cuDNN convolutions (columns
+        # wrapped by circular padding, TF32 off): level 1 on each strip's
+        # window rows, level 2 on its result
         w5 = torch.tensor([[0.02, 0.05, 0.1, 0.05, 0.02],
                            [0.05, 0.1, 0.2, 0.1, 0.05],
                            [0.1, 0.2, 0.3, 0.2, 0.1],
@@ -1072,21 +1109,35 @@ def main(argv=None) -> int:
         # the rows a strip's result needs, read once, and its rows written
         need_bytes = 4 * N * n_strips * ((wrote + 8) + wrote)
         ops = 21 * N * n_strips * ((TM - 2 * HK) + wrote)
+        rows1 = TM - 2 * HK
         rows = []
         for variant in kernels.PROBE_VARIANTS:
             shape = (R, N) if variant == "A" else (R + 2 * HK, N)
             x = torch.rand(shape, generator=gen, device=dev) * 100.0
             fill = torch.rand((R, N), generator=gen, device=dev) - 0.5
-            blocks = x[:n_strips * TM].view(n_strips, 1, TM, N)
-            library_ms = cuda_ms(torch, lambda: F.conv2d(
-                F.pad(blocks, (2, 2, 0, 0), mode="circular"),
-                w5[None, None]), 3)
+            strips = x[:n_strips * TM].view(n_strips, 1, TM, N)
+
+            def library(strips=strips):
+                lvl1 = F.conv2d(F.pad(strips[:, :, :rows1 + 4],
+                                      (2, 2, 0, 0), mode="circular"),
+                                w5[None, None])
+                return F.conv2d(F.pad(lvl1[:, :, :wrote + 4], (2, 2, 0, 0),
+                                      mode="circular"), w5[None, None])
+
+            library_ms = cuda_ms(torch, library, 3)
+            lib_out = library()[:, 0]
+            # the variant's whole windows read once (the experiment copies
+            # them on purpose) and the written rows written once
+            wrows = TM if variant == "A" else TM + 2 * HK
+            window_bytes_ms = (4 * N * n_strips * (wrows + wrote)
+                               / (hbm_gbps * 1e9) * 1e3)
             for depth in exp_overlap.DEPTHS:
                 call, _ = exp_overlap.make(variant, depth, dev)
                 got, want = fill.clone(), fill.clone()
                 _, carry = call(x, got)
                 n_ctas = kernels.overlap_probe.n_ctas(
                     dev, (R, N), variant, depth, TM, HK)
+                info = kernels.overlap_probe.info(dev, variant, depth, TM, HK)
                 _, want_carry = kernels.overlap_probe.plain(
                     x, want, variant, TM, HK, n_ctas)
                 torch.cuda.synchronize()
@@ -1096,9 +1147,12 @@ def main(argv=None) -> int:
                        "route": kernels.overlap_probe.route,
                        "source": kernels.overlap_probe.source,
                        "replaces": kernels.overlap_probe.replaces,
-                       "launches": 0, "dims": list(shape)}
+                       "launches": 0, "dims": list(shape), **info}
                 ok = within_tolerance(got[written], want[written], "float32",
                                       row)
+                wview = want[:n_strips * TM].view(n_strips, TM, N)[:, :wrote]
+                row["library_rel_err"] = float(
+                    (lib_out - wview).abs().max() / wview.abs().max())
                 row["unwritten_unchanged"] = bool(
                     torch.equal(got[~written], fill[~written]))
                 row["carry_equal"] = (carry is None if want_carry is None
@@ -1113,11 +1167,12 @@ def main(argv=None) -> int:
                 row["bound_ms"] = max(bytes_ms, ops_ms)
                 row["bound_by"] = ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+                row["window_bytes_ms"] = window_bytes_ms
                 if not (ok and row["unwritten_unchanged"]
                         and row["carry_equal"]):
                     raise RuntimeError(f"overlap_probe failed: {row}")
                 rows.append(row)
-            del x, fill, blocks, got, want
+            del x, fill, strips, lib_out, got, want
             torch.cuda.empty_cache()
         # the experiment itself: its own times, counted launch by launch
         sweep_bytes_ms = exp_overlap.bytes_ms(dev)
@@ -1129,6 +1184,8 @@ def main(argv=None) -> int:
             row["launches"] = kernels.overlap_probe.launches
             row["compute_only_ms"] = exp_overlap.measure(
                 row["variant"], row["depth"], dev, load=False)
+            row["compute_only_info"] = kernels.overlap_probe.info(
+                dev, row["variant"], row["depth"], TM, HK, load=False)
             row["sweep_bytes_ms"] = sweep_bytes_ms
             print("overlap " + json.dumps(row))
         report["overlap"] = rows

@@ -23,8 +23,9 @@ The kernels of the two kernel experiments (``tuning/exp_tile2d.py``,
   step-fused operator applied whole to a ``(R + 2 * tm, C)`` padded state,
   columns wrapping around ``C``, pad rows never written;
 - ``overlap_probe`` (``tuning/exp_overlap.py:59-65``): a timing probe,
-  ``level(level(window))`` per strip with a synchronous or a ``cp.async``
-  prefetched window load, in ``csrc/experiments.cu``.
+  ``level(level(window))`` per strip, its windows copied by TMA bulk copies
+  completed on ``mbarrier``s, awaited before compute or prefetched one tile
+  ahead, in ``csrc/experiments.cu``.
 
 Every kernel but the probe is built PER PLAN: ``ops/codegen`` writes it as
 text specialised to one plan — for the levels and factor kernels (grid
@@ -87,8 +88,8 @@ BUILD_WORKERS = 16
 TILE2D_MAX_GROUPS = 64
 TILE2D_TM_MULTIPLE = 8
 # csrc/experiments.cu's sizes, checked at load: the probe's columns per tile
-# and rows per chunk.
-PROBE_TILE = 128
+# and the TPU level's rows per chunk (TM - 2*HK and TM - 4*HK are multiples).
+PROBE_TILE = 64
 PROBE_CHUNK = 8
 # the probe's variants, in the order of the C entry's `variant` argument
 PROBE_VARIANTS = ("A", "B", "C")
@@ -776,11 +777,11 @@ class OverlapProbeKernel:
     hk)`` returns ``(out, carry)``.  ``x`` is ``(R, N)`` for variant A and
     ``(R + 2 * hk, N)`` for B and C, ``out`` is ``(R, N)``, both fp32; rows
     ``[0, tm - 4 * hk)`` of each ``tm``-row block of ``out`` are written,
-    the rest keeps its bits.  ``depth`` 1 loads each window synchronously,
-    2 prefetches the next one with ``cp.async``; ``load=False`` skips the
-    loads (a compute-only timing, the output then means nothing).
-    ``carry`` is variant C's ``(n_ctas, hk, PROBE_TILE)`` buffer, else
-    ``None``."""
+    the rest keeps its bits.  ``depth`` 1 copies each window by TMA and
+    waits for it before compute, 2 copies the next tile's window while this
+    one computes; ``load=False`` skips the copies (a compute-only timing,
+    the output then means nothing).  ``carry`` is variant C's ``(n_ctas,
+    hk, PROBE_TILE)`` buffer, else ``None``."""
 
     name = "overlap_probe"
     route = "cuda"
@@ -791,30 +792,56 @@ class OverlapProbeKernel:
 
     def __init__(self):
         self.launches = 0
+        # (device index, variant, depth, load, tm, hk) -> info()
+        self._info: dict = {}
 
     def c_entries(self, ptr, i32):
-        """in, out, carry, R, N, TM, HK, variant, depth, load, the CTAs,
-        the stream."""
-        return {self.name: [ptr, ptr, ptr] + [i32] * 8 + [ptr]}
+        """``overlap_probe``: in, out, carry, R, N, TM, HK, variant,
+        depth, load, the CTAs, the stream; ``overlap_probe_info``: variant,
+        depth, load, TM, HK, an int[4] it fills."""
+        return {self.name: [ptr, ptr, ptr] + [i32] * 8 + [ptr],
+                "overlap_probe_info": [i32] * 5 + [ptr]}
 
     @staticmethod
     def smem_bytes(variant: str, depth: int, tm: int, hk: int) -> int:
-        """Shared memory of one CTA: ``depth`` windows, the level-1 rows
-        and the carry."""
+        """Shared memory of one CTA: four barriers, ``depth`` windows, the
+        level-1 rows and the carry."""
         wrows = tm if variant == "A" else tm + 2 * hk
-        return 4 * (depth * wrows * (PROBE_TILE + 8)
-                    + (tm - 2 * hk) * (PROBE_TILE + 4) + hk * PROBE_TILE)
+        return 32 + 4 * (depth * wrows * (PROBE_TILE + 8)
+                         + (tm - 2 * hk) * (PROBE_TILE + 4)
+                         + hk * PROBE_TILE)
+
+    def info(self, device, variant: str, depth: int, tm: int, hk: int,
+             load: bool = True) -> dict:
+        """What the instantiation takes on ``device``'s card, from the
+        runtime: CTAs per SM (registers and shared memory both counted),
+        registers and local (spill) bytes per thread, shared memory per
+        CTA."""
+        key = (device.index, variant, depth, bool(load), tm, hk)
+        if key not in self._info:
+            lib = EXPERIMENTS.get()
+            got = (ctypes.c_int * 4)()
+            with torch.cuda.device(device):
+                err = lib.overlap_probe_info(PROBE_VARIANTS.index(variant),
+                                             depth, int(load), tm, hk, got)
+            if err:
+                raise _launch_error(self.name, err)
+            self._info[key] = {"ctas_per_sm": got[0], "regs": got[1],
+                               "smem_bytes": got[2], "spill_bytes": got[3]}
+        return self._info[key]
 
     def n_ctas(self, device, shape, variant: str, depth: int, tm: int,
-               hk: int) -> int:
-        """Persistent CTAs of one launch: as many as fit on the card's SMs
-        by shared memory, at most one per tile."""
+               hk: int, load: bool = True) -> int:
+        """Persistent CTAs of one launch: as many as the runtime's
+        occupancy puts on the card's SMs, at most one per tile."""
         R, N = shape
         ntiles = (R // tm) * (N // PROBE_TILE)
         if device.type != "cuda":
             return min(ntiles, 132)
-        per_sm = max(1, min(8, SMEM_LIMIT // self.smem_bytes(
-            variant, depth, tm, hk)))
+        per_sm = self.info(device, variant, depth, tm, hk, load)["ctas_per_sm"]
+        if per_sm < 1:
+            raise ValueError(f"{self.name}: tm={tm} hk={hk} depth={depth} "
+                             "fit no CTA on an SM")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         return min(ntiles, sms * per_sm)
 
@@ -840,12 +867,17 @@ class OverlapProbeKernel:
             raise ValueError(f"{self.name}: variant {variant} reads "
                              f"{want}, got {tuple(x.shape)}")
         on_cpu = _check_fp32_pair(self.name, x, out)
-        n_ctas = self.n_ctas(x.device, (R, N), variant, depth, tm, hk)
         if on_cpu:
-            return self.plain(x, out, variant, tm, hk, n_ctas)
+            return self.plain(x, out, variant, tm, hk,
+                              self.n_ctas(x.device, (R, N), variant, depth,
+                                          tm, hk, load))
         if self.smem_bytes(variant, depth, tm, hk) > SMEM_LIMIT:
             raise ValueError(f"{self.name}: tm={tm} hk={hk} depth={depth} "
                              "exceed shared memory")
+        if x.data_ptr() % 16 or out.data_ptr() % 16:
+            raise ValueError(f"{self.name} copies 16-byte pieces: x and out "
+                             "must be 16-byte aligned")
+        n_ctas = self.n_ctas(x.device, (R, N), variant, depth, tm, hk, load)
         lib = EXPERIMENTS.get()
         carry = (torch.empty((n_ctas, hk, PROBE_TILE), dtype=torch.float32,
                              device=x.device) if variant == "C" else None)

@@ -8,11 +8,12 @@ agreeing with its plain version.
      (R + 2*HK, N) input at row i*TM — the production input shape
   C: B plus a (HK, width) carry written per strip
 
-each at depth 1 (the window loaded synchronously: load, barrier, compute)
-and depth 2 (the next tile's window prefetched with ``cp.async`` into a
-second shared-memory buffer while the current one computes).  The kernel is
-``overlap_probe`` (``csrc/experiments.cu``): persistent CTAs over (strip,
-128-column tile) pairs.
+each at depth 1 (the window copied by TMA and awaited before compute) and
+depth 2 (the next tile's window copied by TMA into a second shared-memory
+buffer while the current one computes; each buffer's copy completes on its
+own ``mbarrier``).  The kernel is ``overlap_probe``
+(``csrc/experiments.cu``): persistent CTAs over (strip, 64-column tile)
+pairs, as many as the runtime's occupancy puts on the card.
 
 Read beside each time: the bytes time of one sweep (input + output, R * N
 fp32 each) at the card's HBM peak from ``tune/tuned.CARD_PEAKS``, and the

@@ -8,7 +8,12 @@ A row is a tuned winner's name (``all`` names every one), or ``factor``:
 ``stencil2d_factor_levels`` on 2d25pt_box, 2d9pt_star and 2d9pt_cross at
 steps 1 and 2 (``<stencil> factor s<step>``), or ``tile2d``: ``tile2d_fused``
 on the plain-tile experiment's sweep (``<stencil> tile2d fu<step>
-tm<tm>``, fp32 only).  Run it from the root of each tree
+tm<tm>``, fp32 only), or ``probe``: ``overlap_probe`` at the overlap
+experiment's sizes, variants A/B/C at depths 1 and 2 (``probe <variant>
+d<depth>``), each with its compute-only ms (the copies skipped) and a digest
+of the written rows only (variant C's carry depends on the CTA count; the
+tests and ``chip_smoke.py`` hold it against plain).  Run it from the root of
+each tree
 within one call on the card, in turns (parent, change, change, parent):
 times compare only within one call.  It builds the plans' kernels first
 (one ``nvcc`` each, started together; seconds, registers and spills are
@@ -22,7 +27,9 @@ against the plain version.
 The file needs of its tree only ``kernels.kernel_for``, ``level_plan``,
 the tuned table, and for the factor and tile2d rows
 ``kernels.stencil2d_factor_levels``, ``kernels.tile2d_taps``,
-``kernels.tile2d_fused`` and the experiment's sweep, so a copy of it also
+``kernels.tile2d_fused`` and the experiment's sweep, and for the probe
+rows ``kernels.overlap_probe`` and ``tuning.exp_overlap``'s sizes, so a copy
+of it also
 runs in a tree whose kernels are not built per plan (it then has no build
 to report for them).
 """
@@ -45,15 +52,18 @@ from drstencil_tpu_torch.ops.stream import (level_plan, resolve_device,
                                             state_dtype)
 from drstencil_tpu_torch.tune.tuned import (BENCH_DIR, best_config,
                                             tuned_entries)
+from drstencil_tpu_torch.tuning import exp_overlap
 from drstencil_tpu_torch.tuning.exp_tile2d import SWEEP
 
 DEFAULT_STENCILS = ("2d5pt_star", "2d9pt_star", "3d7pt_star", "3d13pt_star")
 FACTOR_STENCILS = ("2d25pt_box", "2d9pt_star", "2d9pt_cross")
 FACTOR_STEPS = (1, 2)
+PROBE_ROWS = tuple(f"probe {v} d{d}" for v in ("A", "B", "C") for d in (1, 2))
 
 
 def expand(names) -> list:
-    """Row names: ``all``, ``factor`` and ``tile2d`` expanded."""
+    """Row names: ``all``, ``factor``, ``tile2d`` and ``probe``
+    expanded."""
     out = []
     for n in names:
         if n == "all":
@@ -64,6 +74,8 @@ def expand(names) -> list:
         elif n == "tile2d":
             out += [f"{s} tile2d fu{k} tm{tm}" for s, sweep in SWEEP.items()
                     for k, tm in sweep]
+        elif n == "probe":
+            out += list(PROBE_ROWS)
         else:
             out.append(n)
     return out
@@ -128,6 +140,8 @@ def kernel_row(name: str, device, dtype: str = "float32",
                check: bool = False) -> dict:
     """The kernel of row ``name`` at the ``.stc`` size (a tile2d row's
     source has zero pad rows)."""
+    if name in PROBE_ROWS:
+        return probe_row(name, device, check)
     kernel, plan, shape, extra, _ = row_plan(name, dtype)
     gen = torch.Generator(device=device).manual_seed(0)
     src = (torch.rand(shape, device=device, generator=gen)
@@ -149,10 +163,43 @@ def kernel_row(name: str, device, dtype: str = "float32",
     return row
 
 
+def probe_row(name: str, device, check: bool = False) -> dict:
+    """``overlap_probe`` at the experiment's sizes on a seed-0 input: ms,
+    compute-only ms, the SHA-256 of the written rows."""
+    _, variant, depth = name.split()
+    depth = int(depth[1:])
+    R, N, TM, HK = (exp_overlap.R, exp_overlap.N, exp_overlap.TM,
+                    exp_overlap.HK)
+    shape = (R, N) if variant == "A" else (R + 2 * HK, N)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand(shape, device=device, generator=gen) * 100.0
+    out = torch.zeros((R, N), device=device)
+    scratch = torch.zeros((R, N), device=device)
+    kernel = kernels.overlap_probe
+    row = {"ms": launch_ms(lambda: kernel(x, out, variant, depth, TM, HK),
+                           device),
+           "compute_only_ms": launch_ms(lambda: kernel(
+               x, scratch, variant, depth, TM, HK, False), device)}
+    written = torch.zeros(R, dtype=torch.bool, device=device)
+    for i in range(R // TM):
+        written[i * TM:i * TM + TM - 4 * HK] = True
+    bits = out[written].view(torch.int32)
+    row["sha256"] = hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()
+    if hasattr(kernel, "info"):    # registers, shared memory, CTAs per SM
+        row["info"] = kernel.info(device, variant, depth, TM, HK)
+    if check:
+        want = torch.zeros_like(out)
+        kernel.plain(x, want, variant, TM, HK, 1)
+        row["rel_err"] = float((out[written] - want[written]).abs().max()
+                               / want[written].abs().max())
+    return row
+
+
 def build_report(names, dtype: str) -> dict:
     """Build the rows' per-plan kernels together; per row the nvcc seconds
     (None when found on disk), tile, shared memory, registers and spills.
     Empty for the rows whose kernels this tree does not build per plan."""
+    names = [n for n in names if n not in PROBE_ROWS]
     if not hasattr(kernels, "build_plans"):
         return {}
     requests = {n: row_plan(n, dtype)[4] for n in names}
@@ -183,8 +230,9 @@ def main(argv=None) -> None:
     print(json.dumps({
         "tag": args.tag, "card": torch.cuda.get_device_name(device),
         "dtype": args.dtype,
-        **{key: {n: r[key] for n, r in rows.items()}
-           for key in ("ms", "sha256") + (("rel_err",) if args.check else ())},
+        **{key: {n: r[key] for n, r in rows.items() if key in r}
+           for key in ("ms", "compute_only_ms", "sha256", "info")
+           + (("rel_err",) if args.check else ())},
         "build_seconds": build_seconds, "build": build}))
 
 

@@ -1,5 +1,6 @@
 // g++ emulation of the little CUDA the generated kernels use
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -21,7 +22,7 @@ static inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); re
 // a product never contracted into a following add (g++ runs with -ffp-contract=off)
 static inline float __fmul_rn(float a, float b) { return a * b; }
 struct dim3 { unsigned x, y, z; dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {} };
-static thread_local dim3 threadIdx, blockIdx;
+static thread_local dim3 threadIdx, blockIdx, gridDim, blockDim;
 static thread_local std::barrier<>* g_bar;
 static inline void __syncthreads() { g_bar->arrive_and_wait(); }
 typedef int cudaError_t;
@@ -30,6 +31,10 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSh
 template <class K> static inline cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 static inline cudaError_t cudaGetLastError() { return 0; }
 static inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+using std::min;
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class K> static inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) { a->numRegs = 0; a->localSizeBytes = 0; return 0; }
+template <class K> static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 1; return 0; }
 alignas(16) static float g_smem[232448 / 4];
 template <class F> static void emu_launch(dim3 grid, dim3 block, F f) {
   const unsigned n = block.x * block.y * block.z;
@@ -39,7 +44,7 @@ template <class F> static void emu_launch(dim3 grid, dim3 block, F f) {
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < n; ++t) ts.emplace_back([&, t] {
       threadIdx = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
-      blockIdx = dim3(bx, by, bz); g_bar = &bar;
+      blockIdx = dim3(bx, by, bz); gridDim = grid; blockDim = block; g_bar = &bar;
       struct Drop { std::barrier<>* b; ~Drop() { b->arrive_and_drop(); } } drop{&bar};
       f();
     });

@@ -551,7 +551,8 @@ def test_every_levels_factor_and_tile2d_kernel_comes_from_codegen():
         text = f.read()
     exported = re.findall(r"^(?:int|const char\*) (\w+)\(", text, flags=re.M)
     assert sorted(exported) == ["experiments_error_string",
-                                "experiments_limit", "overlap_probe"]
+                                "experiments_limit", "overlap_probe",
+                                "overlap_probe_info"]
     assert "tile2d" not in text.split("// overlap_probe replaces")[1]
     by_source = {}
     for k in kernels.KERNELS:

@@ -132,7 +132,7 @@ def test_columns_wrap():
 
 @pytest.mark.parametrize("kw,message", [
     (dict(TM=44), "multiples of 8"),
-    (dict(N=200), "multiple of 128"),
+    (dict(N=200), f"multiple of {kernels.PROBE_TILE}"),
     (dict(HK=1), "hk >= 2"),
 ])
 def test_bad_sizes_are_rejected(kw, message):
