@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py                      # every tuned stencil
     python3 chip_smoke.py --stencils 2d5pt_star,3d7pt_star
-    python3 chip_smoke.py --from-phase 14      # phases 14-16 alone (partial)
+    python3 chip_smoke.py --from-phase 14      # phases 14-18 alone (partial)
     python3 chip_smoke.py --mesh-devices cuda:0,cuda:1,cuda:2,cuda:3
                                   # four cards: phases 11 and 13 with one shard
                                   # per card, and weak scaling measured
@@ -28,7 +28,10 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
    CTAs per SM and build seconds;
 3. the main path — ``StencilProgram(spec, best_config(name))`` at the
    ``.stc`` size: ``time()``, then ``device_check(pairs=1) <= 1e-3`` —
-   with the kernel's launch count read around it;
+   with the kernel's launch count read around it.  Phases 2-8 also run,
+   as cases of their own, the TPU config (``benchmarks/tuned.json``) of
+   each kernel mode a TPU winner runs and no winner of the card's table
+   does (K1 single level, K3 value-fused, K4 deep);
 4. ``check()`` against the fp64 golden model at a reduced size;
 5. the entry point ``drstencil_tpu_torch.entry.entry()`` (2d5pt_star,
    step 1, 1024²): one pair against the torch gold and the fp64 golden;
@@ -42,8 +45,9 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
 8. the bf16 ``check()`` against the fp64 golden model at a reduced size;
 9. the autotuner on the card: short sweeps of 2d5pt_star and 3d7pt_star
    at the ``.stc`` size (fp32, bf16 and xla candidates), one config
-   through the isolated worker, and one profiler trace, into a temporary
-   directory with ``TUNED_GPU_PATH`` pointed there;
+   through the isolated worker, and one profiler trace (its busy share by
+   ``utils/trace_summary``), into a temporary directory with
+   ``TUNED_GPU_PATH`` pointed there;
 10. the shard-local kernels against their plain version, fp32 and bf16,
     on a quarter slab of the ``.stc`` grid with its ghost rows, for the
     first, an interior and the last shard's store range and an empty one
@@ -90,7 +94,18 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
     the variant's whole windows, and two cuDNN convolutions (the two
     levels) as the yardstick; then the experiment (ms/sweep beside the
     bytes time and the compute-only time);
-17. one ``{"kernels": [...]}`` line (every kernel a driven path launches,
+17. the bench: ``python -m drstencil_tpu_torch.bench`` with
+    ``BENCH_CHECK=1`` as its own process (one more process per stencil):
+    its JSON line must hold the 8 stencils, each with its roofline
+    fraction and launches counted in its process, no environment marker,
+    and every ``max_dev_diff`` within the ``device_check`` gate of its
+    dtype;
+18. the trace: ``python -m drstencil_tpu_torch.tuning.capture_trace`` of
+    the 2d5pt_star winner as its own process (one warmup pair and two
+    timed pairs), read back by ``utils/trace_summary``: the kernel row must
+    count the launches the wrapper counted in the traced window; the busy
+    share is printed;
+19. one ``{"kernels": [...]}`` line (every kernel a driven path launches,
     fp32 and bf16 rows, with that path's count), the card line, then the ok
     line.
 
@@ -105,6 +120,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -148,6 +164,15 @@ EMIT_TOL = 1e-6
 EMIT_PAIRS, EMIT_WARMUP = 2, 1
 RUN_PAIRS, RUN_WARMUP = 1, 1
 EMIT_TIMEOUT_S = 300.0
+# phases 2-8: the kernel modes of the TPU winners that keep a case of
+# their own where no winner of the card's table runs them
+MODES = ("K1 single level", "K3 value-fused", "K4 deep")
+# phase 17: the bench's cap, its build included
+BENCH_TIMEOUT_S = 600.0
+# phase 18: the traced winner and its kernel's name in the trace
+TRACE_STENCIL = "2d5pt_star"
+TRACE_KERNEL = "stencil_kernel"
+TRACE_TIMEOUT_S = 300.0
 
 
 def nvidia_smi_line() -> str:
@@ -247,6 +272,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # -- 1. environment -----------------------------------------------------
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     hbm_gbps, fp32_tflops = card_peaks(kind)
@@ -269,24 +295,33 @@ def main(argv=None) -> int:
 
     specs = {n: load_stc(os.path.join(bench, n + ".stc")) for n in names}
     shard_names = [n for n in SHARD_STENCILS if n in specs]
+    # the main-path cases: each winner, and the TPU config of each kernel
+    # mode the card's winners no longer run
+    cases = {n: (n, best_config(n)) for n in names}
+    cases.update(lost_mode_cases(names, specs))
+    for key, (_, cfg) in cases.items():
+        if key not in names:
+            print(f"case {key}: {cfg.label()} (a mode no winner runs)")
 
     def plan_requests(mesh_only):
         """(what, (plan, dims, dtype, shard)) of every per-plan kernel the
         phases below are known to launch (``mesh_only``: the multi-device
         phases', weak scaling's longer slabs included)."""
         out = []
-        for name in names:
+        for key, (name, case_cfg) in cases.items():
             spec = specs[name]
             for dtype in ("float32", "bfloat16"):
-                cfg = best_config(name).replace(dtype=dtype)
+                cfg = case_cfg.replace(dtype=dtype)
                 an = analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
                 plan = level_plan(an, cfg)
                 rest = tuple(spec.dims[1:])
-                out.append((f"{name} {dtype}",
+                out.append((f"{key} {dtype}",
                             (plan, spec.dims, dtype, False)))
                 if not mesh_only:
-                    out.append((f"{name} {dtype} reduced",
+                    out.append((f"{key} {dtype} reduced",
                                 (plan, REDUCED[spec.ndim], dtype, False)))
+                if key != name:
+                    continue
                 if dtype == "float32" or name in shard_names:
                     slab = (spec.dims[0] // N_SHARDS + 2 * plan.frame,) + rest
                     out.append((f"{name} {dtype} shard slab",
@@ -446,14 +481,15 @@ def main(argv=None) -> int:
     def level_table(plan):
         return plan.offsets.tolist(), plan.coeffs.tolist(), plan.reach
 
-    def kernel_row(name, dtype):
-        """Kernel vs plain version on ``name``'s winner plan at the .stc
-        size in ``dtype``; the yardstick is one convolution per level."""
+    def kernel_row(key, dtype):
+        """Kernel vs plain version on case ``key``'s plan at the .stc size
+        in ``dtype``; the yardstick is one convolution per level."""
+        name, cfg = cases[key]
         spec = specs[name]
-        cfg = best_config(name).replace(dtype=dtype)
+        cfg = cfg.replace(dtype=dtype)
         an = analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
         plan = level_plan(an, cfg)
-        return compare(name, kernels.kernel_for(spec.ndim), plan, an, cfg,
+        return compare(key, kernels.kernel_for(spec.ndim), plan, an, cfg,
                        level_table(plan), plan.levels)
 
     def shard_kernel_row(name, dtype):
@@ -655,6 +691,12 @@ def main(argv=None) -> int:
             raise RuntimeError(f"dryrun_multichip launched {dry['launches']} "
                                f"shard kernels, expected {2 * N_SHARDS}")
 
+    def phase_done(n):
+        """Seconds since the start, after phase ``n``."""
+        t = time.perf_counter() - t_start
+        report.setdefault("phase_seconds", {})[str(n)] = t
+        print(f"phase {n} done at {t:.1f} s")
+
     def write_report():
         os.makedirs(kernels.BUILD_DIR, exist_ok=True)
         path = os.path.join(kernels.BUILD_DIR, "chip_smoke.json")
@@ -707,20 +749,21 @@ def main(argv=None) -> int:
         del prog, other
         torch.cuda.empty_cache()
 
-    def main_path(name, dtype, rows):
-        """``StencilProgram`` on ``name``'s winner in ``dtype``: time(),
+    def main_path(key, dtype, rows):
+        """``StencilProgram`` on case ``key``'s config in ``dtype``: time(),
         device_check(pairs=1), launches counted from 0 around them."""
-        spec, cfg = specs[name], best_config(name).replace(dtype=dtype)
+        name, cfg = cases[key]
+        spec, cfg = specs[name], cfg.replace(dtype=dtype)
         kernel = kernels.kernel_for(spec.ndim)
         prog = StencilProgram(spec, cfg)
         kernels.reset_launches()
         res = prog.time()
         diff = prog.device_check(pairs=1)
         launches = kernel.launches
-        rows[name]["launches"] = launches
+        rows[key]["launches"] = launches
         ms_pair = res.seconds_per_pair * 1e3
         line = {
-            "stencil": name, "cfg": cfg.label(), "dims": list(spec.dims),
+            "stencil": key, "cfg": cfg.label(), "dims": list(spec.dims),
             "dtype": dtype, "ms_per_pair": ms_pair,
             "ms_per_step": ms_pair / (2 * prog.an.step),
             "gstencil_per_s": res.gstencil_per_s,
@@ -731,18 +774,19 @@ def main(argv=None) -> int:
         print(json.dumps(line))
         report["main_path"].append(line)
         if launches <= 0:
-            raise RuntimeError(f"{name} {dtype}: main path launched no "
+            raise RuntimeError(f"{key} {dtype}: main path launched no "
                                "kernel")
         if not diff <= DEVICE_CHECK_TOL[dtype]:
-            raise RuntimeError(f"{name} {dtype}: device_check {diff} > "
+            raise RuntimeError(f"{key} {dtype}: device_check {diff} > "
                                f"{DEVICE_CHECK_TOL[dtype]}")
         del prog
         torch.cuda.empty_cache()
 
-    def golden(name, dtype):
+    def golden(key, dtype):
         """``check()`` against the fp64 golden model at the reduced size."""
+        name, cfg = cases[key]
         full = specs[name]
-        cfg = best_config(name).replace(dtype=dtype)
+        cfg = cfg.replace(dtype=dtype)
         spec = StencilSpec(full.name, REDUCED[full.ndim], full.iterations,
                            full.taps)
         prog = StencilProgram(spec, cfg)
@@ -751,13 +795,13 @@ def main(argv=None) -> int:
         h = prog.an.halo
         inner = a[tuple(slice(h, s - h) for s in a.shape)]
         scale = max(1.0, float(np.abs(inner).max()) / 100.0)
-        line = {"stencil": name, "dims": list(spec.dims), "dtype": dtype,
+        line = {"stencil": key, "dims": list(spec.dims), "dtype": dtype,
                 "max_err": max_err, "rms_err": rms, "tol_scale": scale}
         print("golden " + json.dumps(line))
         report["golden"].append(line)
         max_tol, rms_tol = GOLDEN_TOL[dtype]
         if not (max_err < max_tol * scale and rms < rms_tol * scale):
-            raise RuntimeError(f"{name} {dtype}: fp64 golden check failed "
+            raise RuntimeError(f"{key} {dtype}: fp64 golden check failed "
                                f"{line}")
 
     # -- phases 14-16: helpers ------------------------------------------------
@@ -1194,17 +1238,18 @@ def main(argv=None) -> int:
     if args.mesh_devices:
         return multi_device_only()
 
+    phase_done(1)
     if args.from_phase <= 2:
         # -- 2. each kernel against its plain version ---------------------------
-        kernel_rows = {n: kernel_row(n, "float32") for n in names}
+        kernel_rows = {k: kernel_row(k, "float32") for k in cases}
 
         # -- 3. main path at the .stc size ---------------------------------------
-        for name in names:
-            main_path(name, "float32", kernel_rows)
+        for key in cases:
+            main_path(key, "float32", kernel_rows)
 
         # -- 4. fp64 golden at reduced size --------------------------------------
-        for name in names:
-            golden(name, "float32")
+        for key in cases:
+            golden(key, "float32")
 
         # -- 5. the entry point ---------------------------------------------------
         pair, (a, b) = entry_mod.entry()
@@ -1233,15 +1278,15 @@ def main(argv=None) -> int:
         del a, b, ga, gb
 
         # -- 6. the bf16 builds against their plain version ----------------------
-        bf16_rows = {n: kernel_row(n, "bfloat16") for n in names}
+        bf16_rows = {k: kernel_row(k, "bfloat16") for k in cases}
 
         # -- 7. the bf16 main path at the .stc size -------------------------------
-        for name in names:
-            main_path(name, "bfloat16", bf16_rows)
+        for key in cases:
+            main_path(key, "bfloat16", bf16_rows)
 
         # -- 8. bf16 fp64 golden at reduced size ---------------------------------
-        for name in names:
-            golden(name, "bfloat16")
+        for key in cases:
+            golden(key, "bfloat16")
 
         # -- 9. the autotuner on the card ----------------------------------------
         kernels.reset_launches()
@@ -1253,6 +1298,7 @@ def main(argv=None) -> int:
         if not report["tuner"]["launches"]:
             raise RuntimeError("the tuner's sweeps launched no per-plan "
                                "kernel")
+        phase_done(9)
 
     if args.from_phase <= 10:
         # -- 10. the shard-local kernels against their plain version -------------
@@ -1275,6 +1321,7 @@ def main(argv=None) -> int:
 
         # -- 13. the multi-device dry run -------------------------------------------
         dryrun_phase()
+        phase_done(13)
 
     # -- 14. emitted programs -------------------------------------------------
     kernels.reset_launches()
@@ -1287,19 +1334,28 @@ def main(argv=None) -> int:
 
     # -- 16. the overlap probe ---------------------------------------------------
     overlap_rows = overlap_phase()
+    phase_done(16)
+
+    # -- 17. the bench --------------------------------------------------------
+    report["bench"] = bench_phase(kind)
+    phase_done(17)
+
+    # -- 18. one trace, read back ----------------------------------------------
+    report["trace"] = trace_phase()
+    phase_done(18)
 
     if args.from_phase > 2:
         write_report()
         print(f"partial run from phase {args.from_phase}: no result lines")
         return 0
 
-    # -- 17. result lines ----------------------------------------------------
+    # -- 19. result lines ----------------------------------------------------
     if sha256(tuned_json) != tuned_sha:
         raise RuntimeError("benchmarks/tuned.json changed during the run")
     keys = ("name", "stencil", "dtype", "route", "source", "replaces",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    all_rows = ([kernel_rows[n] for n in names] + [bf16_rows[n] for n in names]
+    all_rows = ([kernel_rows[k] for k in cases] + [bf16_rows[k] for k in cases]
                 + [shard_rows[dt][n] for dt in shard_rows for n in shard_names]
                 + factor_rows + emitted_rows + tile2d_rows + overlap_rows)
     idle = [r["name"] for r in all_rows if r["launches"] <= 0]
@@ -1314,6 +1370,38 @@ def main(argv=None) -> int:
     return 0
 
 
+def lost_mode_cases(names, specs) -> dict:
+    """``"<name> tpu"`` -> ``(name, TPU config)`` for each kernel mode of
+    ``MODES`` that a TPU winner of ``names`` (``benchmarks/tuned.json``)
+    runs and no winner of ``best_config`` does: the first such stencil's
+    TPU config, so that no mode loses its check on the card."""
+    from drstencil_tpu_torch.ir.passes import analyze
+    from drstencil_tpu_torch.ops.config import KernelConfig
+    from drstencil_tpu_torch.ops.stream import is_deep, n_levels
+    from drstencil_tpu_torch.tune.tuned import best_config, tuned_entries
+
+    def modes(name, cfg):
+        spec = specs[name]
+        an = analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
+        return {m for m, has in (
+            ("K1 single level", n_levels(an, cfg) == 1),
+            ("K3 value-fused", cfg.vfuse),
+            ("K4 deep", is_deep(an, cfg))) if has}
+
+    tpu = {n: KernelConfig.from_dict(e["config"])
+           for n, e in tuned_entries().items() if n in names}
+    running = set().union(*(modes(n, best_config(n)) for n in names))
+    out = {}
+    for mode in MODES:
+        if mode in running:
+            continue
+        for name in sorted(tpu):
+            if mode in modes(name, tpu[name]):
+                out[f"{name} tpu"] = (name, tpu[name])
+                break
+    return out
+
+
 def tune_phase(torch, Tuner, tuned_mod, session_mod, bench, specs) -> dict:
     """Short sweeps on the card: for each of ``TUNE_STENCILS``, every
     candidate at its prior's step (fp32 and bf16 streams, the xla gold),
@@ -1322,6 +1410,7 @@ def tune_phase(torch, Tuner, tuned_mod, session_mod, bench, specs) -> dict:
     unless every kind was measured with no error and no failed check."""
     from drstencil_tpu_torch.ir.spec import load_stc
     from drstencil_tpu_torch.tune.space import representative
+    from drstencil_tpu_torch.utils.trace_summary import busy_share
 
     out = {"sweeps": {}, "isolated": None, "trace": None}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -1367,8 +1456,9 @@ def tune_phase(torch, Tuner, tuned_mod, session_mod, bench, specs) -> dict:
                                "ms_per_step": ientry.get("ms_per_step"),
                                "error": ientry.get("error")}
             print("tune isolated " + json.dumps(out["isolated"]))
-            out["trace"] = trace_summary(session_mod.session_trace(
-                bench, tmp, name, log=lambda m: print("tune " + m)))
+            trace_dir = session_mod.session_trace(
+                bench, tmp, name, log=lambda m: print("tune " + m))
+            out["trace"] = busy_share(trace_dir) if trace_dir else None
             print("tune trace " + json.dumps(out["trace"]))
         finally:
             tuned_mod.TUNED_GPU_PATH = saved
@@ -1387,22 +1477,77 @@ def tune_phase(torch, Tuner, tuned_mod, session_mod, bench, specs) -> dict:
     return out
 
 
-def trace_summary(trace_dir):
-    """Kernel events of the session trace's Chrome trace and the device's
-    busy share over their span (soft: None where no trace was written)."""
-    path = os.path.join(trace_dir, "trace.json") if trace_dir else None
-    if not path or not os.path.exists(path):
-        return None
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    ks = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    if not ks:
-        return {"kernel_events": 0}
-    span = max(e["ts"] + e["dur"] for e in ks) - min(e["ts"] for e in ks)
-    busy = sum(e["dur"] for e in ks)
-    names = sorted({e.get("name", "")[:60] for e in ks})
-    return {"kernel_events": len(ks), "kernel_us": busy, "span_us": span,
-            "busy_share": busy / span if span else None, "names": names[:8]}
+def bench_phase(kind) -> dict:
+    """Phase 17: the bench as its own process with ``BENCH_CHECK=1``; its
+    JSON line is printed (not as the last line) and must hold every
+    stencil of its suite, each scored, counted and within its gate."""
+    from drstencil_tpu_torch.bench import ALL
+
+    env = dict(os.environ, BENCH_CHECK="1")
+    env.pop("BENCH_STENCILS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "drstencil_tpu_torch.bench"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print("bench " + line)
+    for err in proc.stderr.splitlines():
+        if err.startswith("# "):
+            print("bench " + err)
+    launches = dict(re.findall(r"^# (\S+): launches=(\d+)", proc.stderr,
+                               re.M))
+    out = json.loads(line) if line.startswith("{") else {}
+    detail = out.get("detail", {})
+    rows = {n: r for n, r in detail.items() if not n.startswith("_")}
+    bad = [n for n, r in rows.items()
+           if "roofline_frac" not in r or int(launches.get(n, 0)) <= 0
+           or not r.get("max_dev_diff", float("inf")) <= DEVICE_CHECK_TOL[
+               "bfloat16" if "bfloat16" in r.get("cfg", "") else "float32"]]
+    summary = {"value": out.get("value"), "unit": out.get("unit"),
+               "rows": rows, "launches": {n: int(v)
+                                          for n, v in launches.items()},
+               "seconds": seconds, "rc": proc.returncode}
+    if (proc.returncode != 0 or sorted(rows) != sorted(ALL) or bad
+            or "_environment" in detail or kind not in out.get("unit", "")):
+        raise RuntimeError(f"bench phase failed (rc {proc.returncode}, "
+                           f"bad rows {bad}): {line[:2000]}\n"
+                           f"{proc.stderr[-3000:]}")
+    print(f"bench: value {out['value']} over {len(rows)} stencils in "
+          f"{seconds:.1f} s")
+    return summary
+
+
+def trace_phase() -> dict:
+    """Phase 18: ``python -m drstencil_tpu_torch.tuning.capture_trace`` of
+    the 2d5pt_star winner as its own process (a second ``torch.profiler``
+    session in this process, after phase 9's, recorded no CUDA events).
+    Its last line is its JSON verdict, read through ``utils/trace_summary``
+    in that process: the trace's kernel row must count the launches the
+    wrapper counted in the traced window."""
+    from drstencil_tpu_torch.tuning import capture_trace
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "drstencil_tpu_torch.tuning.capture_trace",
+         TRACE_STENCIL, "chip_smoke"], cwd=ROOT, capture_output=True,
+        text=True, timeout=TRACE_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise RuntimeError(f"capture_trace failed (rc {proc.returncode}): "
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    print("\n".join("trace " + line for line in lines[:-1]))
+    verdict = json.loads(lines[-1])
+    counted = sum(r["count"] for r in verdict["rows"]
+                  if r["name"].startswith(TRACE_KERNEL))
+    expect = 2 * (capture_trace.WARMUP_PAIRS
+                  + capture_trace.REPEATS * capture_trace.PAIRS)
+    out = {"stencil": TRACE_STENCIL, "launches": verdict["launches"],
+           "kernel_rows_count": counted, "busy": verdict["busy"],
+           "threads": sorted({r["thread"] for r in verdict["rows"]})}
+    print("trace " + json.dumps(out))
+    if not counted == out["launches"] == expect:
+        raise RuntimeError(f"trace phase failed: {out}")
+    return out
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@ the card's single-device ms/step is known, the MODELLED weak-scaling
 efficiency.  The ``score`` fields of ``benchmarks/tuned.json`` are TPU
 times and are never read: the card's time comes from the caller (a dict by
 stencil name, as ``chip_smoke.py`` measures it) or from
-``benchmarks/tuned_gpu.json`` where the port's tuner has written one.
+``drstencil_tpu_torch/tune/tuned_gpu.json`` (the port's committed winners).
 Without either, a row carries bytes and copy time only.  The traffic
 accounting is pinned to the exchange's own counters by
 ``tests/test_torch_parallel.py``; this module only divides those bytes by

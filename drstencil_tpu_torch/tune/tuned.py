@@ -1,9 +1,9 @@
 """Best-known kernel configs per benchmark stencil, and the card's roofline.
 
 The port's tuner (``tune.tuner``) records the winning config per stencil
-into ``benchmarks/tuned_gpu.json`` (``TUNED_GPU_PATH``), monotone under
-the dtype-normalised objective, and never writes ``benchmarks/tuned.json``
-(the JAX package's TPU winners).  ``best_config`` reads a ``tuned_gpu.json``
+into ``drstencil_tpu_torch/tune/tuned_gpu.json`` (``TUNED_GPU_PATH``),
+monotone under the dtype-normalised objective, and never writes
+``benchmarks/tuned.json`` (the JAX package's TPU winners).  ``best_config`` reads a ``tuned_gpu.json``
 entry where there is one, else the ``tuned.json`` entry unchanged
 (``KernelConfig.from_dict`` keeps every field), else a curated default.
 The roofline denominator is the card's own HBM bandwidth, chosen from its
@@ -70,8 +70,9 @@ BENCH_DIR = os.path.join(
 )
 # the JAX package's TPU winners: read, never written by the port
 TUNED_PATH = os.path.join(BENCH_DIR, "tuned.json")
-# the port's own winners on the card
-TUNED_GPU_PATH = os.path.join(BENCH_DIR, "tuned_gpu.json")
+# the port's own winners on the card, committed beside this module
+TUNED_GPU_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tuned_gpu.json")
 
 # Curated defaults of the JAX package, for names tuned.json lacks.
 _DEFAULTS = {

@@ -14,6 +14,7 @@ region untouched.
 import dataclasses
 import hashlib
 import itertools
+import json
 import os
 import re
 import shutil
@@ -31,6 +32,7 @@ from drstencil_tpu_torch.ops import codegen, kernels
 from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.ops.stream import level_plan
 from drstencil_tpu_torch.tune import space
+from drstencil_tpu_torch.tune import tuned as tuned_mod
 from drstencil_tpu_torch.tune.tuned import best_config
 from drstencil_tpu_torch.utils.profiling import traffic_model
 
@@ -48,6 +50,16 @@ N_SHARDS = 4
 KERNEL_TOL = 1e-5
 EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "cuda_emulation")
+
+
+@pytest.fixture(autouse=True)
+def tpu_winners(monkeypatch, tmp_path):
+    """Every test here holds the plans of the JAX package's winners
+    (``benchmarks/tuned.json``), whatever the port's committed table picks:
+    the port's table is pointed at a missing file, so ``best_config`` falls
+    back to them."""
+    monkeypatch.setattr(tuned_mod, "TUNED_GPU_PATH",
+                        str(tmp_path / "tuned_gpu.json"))
 
 
 def bench_spec(name, dims=None):
@@ -470,6 +482,32 @@ def test_emulated_winner_equals_plain(tmp_path, name):
         "narrow_bf16_2d", "one_column_bf16_3d", "169_taps", "125_taps", "block"])
 def test_emulated_variants_equal_plain(tmp_path, name, dims, kw):
     run_emulated(tmp_path, name, dims, **kw)
+
+
+def hopper_winner(name):
+    """``name``'s entry of the port's committed table (read directly: the
+    fixture above points ``best_config`` at the JAX winners)."""
+    with open(os.path.join(os.path.dirname(tuned_mod.__file__),
+                           "tuned_gpu.json")) as f:
+        return KernelConfig.from_dict(json.load(f)[name]["config"])
+
+
+@pytest.mark.parametrize("name", WINNERS)
+@pytest.mark.parametrize("shard", [False, True], ids=["grid", "shard"])
+def test_emulated_hopper_winners_equal_plain(tmp_path, name, shard):
+    """The plans of the card's winners (``tune/tuned_gpu.json``) under the
+    emulation: a small grid in fp32, and a shard slab's first store range
+    (a frame's worth of rows left to the neighbour) in bf16."""
+    cfg = hopper_winner(name)
+    spec = bench_spec(name)
+    H = level_plan(analyze(spec, cfg.step, cfg.distance, cfg.merge_forward),
+                   cfg).frame
+    rest = (600,) if spec.ndim == 2 else (30, 72)
+    if shard:
+        run_emulated(tmp_path, name, (24 + 2 * H,) + rest, "bfloat16",
+                     rows=(2 * H, 24 + H), cfg=cfg)
+    else:
+        run_emulated(tmp_path, name, (40 + 2 * H,) + rest, "float32", cfg=cfg)
 
 
 @pytest.mark.parametrize("name,dims,dtype,rows", [

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from drstencil_tpu.ops.config import KernelConfig as JKernelConfig
 from drstencil_tpu.ops.runner import StencilProgram as JProgram
 from drstencil_tpu.ops.stream import unpad_state
 from drstencil_tpu.tune import tuned as jtuned
@@ -149,7 +150,10 @@ def test_convert_round_trip():
 
 
 @pytest.mark.parametrize("name", WINNERS)
-def test_configs_and_specs_carry_across(name):
+def test_configs_and_specs_carry_across(name, monkeypatch, tmp_path):
+    # the fallback: without the port's table, best_config is the JAX one's
+    monkeypatch.setattr(tuned, "TUNED_GPU_PATH",
+                        str(tmp_path / "tuned_gpu.json"))
     jcfg = jtuned.best_config(name)
     cfg = convert.config_from_dict(asdict(jcfg))
     assert cfg == tuned.best_config(name)
@@ -159,6 +163,20 @@ def test_configs_and_specs_carry_across(name):
     spec = convert.spec_from_fields(jspec.name, jspec.dims, jspec.iterations,
                                     jspec.taps)
     assert spec.to_stc() == jspec.to_stc()
+
+
+@pytest.mark.parametrize("name", WINNERS)
+def test_hopper_winner_carries_across(name):
+    """With the port's committed table, ``best_config`` is its entry, and
+    that config is one the JAX package's ``KernelConfig`` reads back field
+    for field and label for label."""
+    entry = tuned.tuned_entries(tuned.TUNED_GPU_PATH)[name]
+    cfg = tuned.best_config(name)
+    assert asdict(cfg) == entry["config"]
+    jcfg = JKernelConfig.from_dict(entry["config"])
+    assert asdict(jcfg) == asdict(cfg)
+    assert jcfg.label() == cfg.label()
+    assert convert.config_from_dict(asdict(jcfg)) == cfg
 
 
 def test_roofline_denominator_is_the_cards():
@@ -208,7 +226,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "drstencil_tpu_torch/tuning/exp_overlap.py",
             "drstencil_tpu_torch/ops/codegen.py",
             "drstencil_tpu_torch/utils/kernel_times.py"} <= rel
-    assert len(files) >= 32
+    # ... and the measurement entry points
+    assert {"drstencil_tpu_torch/bench.py",
+            "drstencil_tpu_torch/utils/trace_summary.py",
+            "drstencil_tpu_torch/tuning/capture_trace.py"} <= rel
+    assert len(files) >= 35
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

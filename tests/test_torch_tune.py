@@ -133,9 +133,14 @@ def test_space_labels_unique_and_collapsed(name):
 
 
 @pytest.mark.parametrize("name", WINNERS)
-def test_tpu_winners_are_in_the_space(name):
+def test_tpu_winners_are_in_the_space(name, monkeypatch, tmp_path):
     """Each tuned.json winner's Hopper representative is a candidate, so
-    the prior-first rule never has to add it from outside the space."""
+    the prior-first rule never has to add it from outside the space.  The
+    port's table is pointed at a missing file, so ``best_config`` is the
+    fallback to the TPU winners (the card's own winners are checked in
+    ``test_torch_tuned_gpu.py``)."""
+    monkeypatch.setattr(tuned_mod, "TUNED_GPU_PATH",
+                        str(tmp_path / "tuned_gpu.json"))
     spec = load_stc(os.path.join(BENCH_DIR, name + ".stc"))
     rep = space.representative(tuned_mod.best_config(name), spec.ndim)
     assert rep in [c.cfg for c in space.default_space(spec)]
