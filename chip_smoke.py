@@ -43,11 +43,18 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
    .replace(dtype="bfloat16"))``: ``time()``, ``device_check(pairs=1) <=
    1e-2``, launches read around it;
 8. the bf16 ``check()`` against the fp64 golden model at a reduced size;
-9. the autotuner on the card: short sweeps of 2d5pt_star and 3d7pt_star
-   at the ``.stc`` size (fp32, bf16 and xla candidates), one config
-   through the isolated worker, and one profiler trace (its busy share by
-   ``utils/trace_summary``), into a temporary directory with
-   ``TUNED_GPU_PATH`` pointed there;
+9. the autotuner on the card: short sweeps at the ``.stc`` size of
+   2d5pt_star (every candidate at its prior's step: fp32 with its tile
+   candidates, bf16 and xla) and 3d7pt_star (its prior's trapezoid in fp32
+   and bf16), one config through the isolated worker, and one profiler
+   trace (its busy share by ``utils/trace_summary``), into a temporary
+   directory with ``TUNED_GPU_PATH`` pointed there; then the tuner's tile
+   axes: for the 2d5pt_star and 3d27pt_box winners at the ``.stc`` size
+   and the 2d5pt_star winner on two grids narrower than its strip, every
+   ``(tm, ch)`` the space emits beside the generator's tile, each output
+   bit-equal to the generator's tile's and within 1e-5 of the plain
+   version, with ms per launch against the bound, the tile, the CTAs per
+   SM and the SM count the card reports;
 10. the shard-local kernels against their plain version, fp32 and bf16,
     on a quarter slab of the ``.stc`` grid with its ghost rows, for the
     first, an interior and the last shard's store range and an empty one
@@ -152,10 +159,18 @@ FACTOR_STENCILS = ("2d25pt_box", "2d9pt_star", "2d9pt_cross")
 FACTOR_STEPS = (1, 2)
 # phases 11-12: pairs per timing (3 repeats, after 1 warmup pair)
 PAIRS = 4
-# phase 9: the stencils swept, the pairs per timing, the worker's cap
-TUNE_STENCILS = ("2d5pt_star", "3d7pt_star")
+# phase 9: the stencils swept (with the labels swept, {step} the prior's:
+# the 2D stencil's every candidate at that step, its tiles included, the 3D
+# one's trapezoid in both dtypes), the pairs per timing, the worker's cap
+TUNE_STENCILS = (("2d5pt_star", "*_fu{step}*"),
+                 ("3d7pt_star", "stream_fu{step}_trap*"))
 TUNE_PAIRS = 4
 TUNE_TIMEOUT_S = 300.0
+# phase 9: the tile axes' cases: (stencil, grid or None for the .stc
+# size); the two narrow 2D grids are narrower than a 512-cell strip, one of
+# them no multiple of 4 wide (cell-wise access)
+GEOMETRY_CASES = (("2d5pt_star", None), ("3d27pt_box", None),
+                  ("2d5pt_star", (1024, 132)), ("2d5pt_star", (1024, 130)))
 # phase 14: emitted kernel vs the library kernel, fp32 (the same fmaf
 # sequence on the same values, so 0 differing cells is expected)
 EMIT_TOL = 1e-6
@@ -239,6 +254,7 @@ def main(argv=None) -> int:
     from drstencil_tpu_torch.parallel import halo, stream_shard
     from drstencil_tpu_torch.parallel.model import winner_rows
     from drstencil_tpu_torch.tune import session as session_mod
+    from drstencil_tpu_torch.tune import space as space_mod
     from drstencil_tpu_torch.tune import tuned as tuned_mod
     from drstencil_tpu_torch.tune.tuned import (
         best_config, card_peaks, naive_sol_gstencil, tuned_entries)
@@ -303,6 +319,19 @@ def main(argv=None) -> int:
         if key not in names:
             print(f"case {key}: {cfg.label()} (a mode no winner runs)")
 
+    def geometry_tiles(name, dims):
+        """(spec, an, [(cfg, plan), ...]) of a tile-axes case: ``name``'s
+        winner in fp32 at the generator's tile, then at every tile the
+        space emits beside it (``tune/space.tile_candidates``), on
+        ``dims`` (None: the .stc size)."""
+        spec = specs.get(name) or load_stc(os.path.join(bench, name + ".stc"))
+        if dims is not None:
+            spec = StencilSpec(spec.name, dims, spec.iterations, spec.taps)
+        base = best_config(name).replace(tm=None, ch=None, dtype="float32")
+        an = analyze(spec, base.step, base.distance, base.merge_forward)
+        cfgs = [base] + [c.cfg for c in space_mod.tile_candidates(spec, base)]
+        return spec, an, [(c, level_plan(an, c)) for c in cfgs]
+
     def plan_requests(mesh_only):
         """(what, (plan, dims, dtype, shard)) of every per-plan kernel the
         phases below are known to launch (``mesh_only``: the multi-device
@@ -342,6 +371,11 @@ def main(argv=None) -> int:
                         out.append((f"{name} {cfg.label()}", (
                             level_plan(analyze(spec, step), cfg), spec.dims,
                             dtype, False)))
+        for name, dims in () if mesh_only else GEOMETRY_CASES:
+            spec, _, tiles = geometry_tiles(name, dims)
+            for cfg, plan in tiles:
+                out.append((f"{name} {spec.dims} {cfg.label()} tile",
+                            (plan, spec.dims, "float32", False)))
         for name, sweep in () if mesh_only else exp_tile2d.SWEEP.items():
             spec = specs.get(name) or load_stc(
                 os.path.join(bench, name + ".stc"))
@@ -524,6 +558,58 @@ def main(argv=None) -> int:
                       ([o for o, _ in taps], [c for _, c in taps], 2), step)
         row["step"] = step
         return row
+
+    def geometry_phase():
+        """Phase 9, the tuner's tile axes: each ``GEOMETRY_CASES`` case at
+        every tile of :func:`geometry_tiles` on one random fp32 state: the
+        output bit-equal to the generator's tile's (every cell runs the same
+        ``fmaf`` chain whatever the tile) and within ``KERNEL_TOL`` of the
+        plain version, ms per launch against the bound, and the SM count
+        the card reports."""
+        sms = kernels.sm_count(dev)
+        print(f"geometry: the card reports {sms} SMs")
+        lines = []
+        for name, dims in GEOMETRY_CASES:
+            spec, an, tiles = geometry_tiles(name, dims)
+            kernel = kernels.kernel_for(spec.ndim)
+            src = torch.rand(spec.dims, generator=gen, device=dev) * 100.0
+            want = torch.zeros_like(src)
+            kernel.plain(src, want, tiles[0][1])
+            top = float(want.abs().max())
+            bound = traffic_model(an, tiles[0][0]).bound_ms(hbm_gbps,
+                                                            fp32_tflops)
+            first = None
+            for cfg, plan in tiles:
+                got = torch.zeros_like(src)
+                kernel(src, got, plan)
+                torch.cuda.synchronize()
+                built = kernels.plan_kernel(plan, spec.dims, torch.float32)
+                g = built.geometry
+                line = {"stencil": name, "dims": list(spec.dims),
+                        "cfg": cfg.label(), "tm": cfg.tm, "ch": cfg.ch,
+                        "sms": sms, "tile": list(g.tile),
+                        "grid": list(g.grid), "ctas": int(np.prod(g.grid)),
+                        "threads": g.threads, "smem_bytes": g.smem_bytes,
+                        "ctas_per_sm": built.ctas_per_sm(), **built.ptxas(),
+                        "rel_err": float((got - want).abs().max()) / top,
+                        "bit_equal_default": first is None or torch.equal(
+                            got.view(torch.int32), first.view(torch.int32))}
+                if first is None:
+                    first = got
+                line["ms"] = cuda_ms(torch, lambda: kernel(src, got, plan),
+                                     20)
+                line["bound_ms"], line["bound_by"] = bound
+                line["x_bound"] = line["ms"] / bound[0]
+                print("geometry " + json.dumps(line))
+                lines.append(line)
+                if not (line["bit_equal_default"]
+                        and line["rel_err"] <= KERNEL_TOL):
+                    raise RuntimeError(f"{name} {cfg.label()} on "
+                                       f"{spec.dims}: tile check failed: "
+                                       f"{line}")
+            del src, want, first, got
+            torch.cuda.empty_cache()
+        return lines
 
     def time_pairs(pair, a, b, devices=(dev,)):
         """Median ms per pair over 3 repeats of ``PAIRS`` pairs after one
@@ -1255,7 +1341,7 @@ def main(argv=None) -> int:
         pair, (a, b) = entry_mod.entry()
         base = load_stc(os.path.join(bench, "2d5pt_star.stc"))
         spec = StencilSpec(base.name, tuple(a.shape), base.iterations, base.taps)
-        cfg = KernelConfig(variant="stream", step=1, tm=128)
+        cfg = KernelConfig(variant="stream", step=1)
         gold = xla_ref.apply_interior(analyze(spec, cfg.step))
         ga, gb = a.clone(), b.clone()
         kernels.reset_launches()
@@ -1298,6 +1384,7 @@ def main(argv=None) -> int:
         if not report["tuner"]["launches"]:
             raise RuntimeError("the tuner's sweeps launched no per-plan "
                                "kernel")
+        report["geometry"] = geometry_phase()
         phase_done(9)
 
     if args.from_phase <= 10:
@@ -1376,9 +1463,9 @@ def lost_mode_cases(names, specs) -> dict:
     runs and no winner of ``best_config`` does: the first such stencil's
     TPU config, so that no mode loses its check on the card."""
     from drstencil_tpu_torch.ir.passes import analyze
-    from drstencil_tpu_torch.ops.config import KernelConfig
     from drstencil_tpu_torch.ops.stream import is_deep, n_levels
-    from drstencil_tpu_torch.tune.tuned import best_config, tuned_entries
+    from drstencil_tpu_torch.tune.tuned import (best_config, tpu_config,
+                                                tuned_entries)
 
     def modes(name, cfg):
         spec = specs[name]
@@ -1388,7 +1475,8 @@ def lost_mode_cases(names, specs) -> dict:
             ("K3 value-fused", cfg.vfuse),
             ("K4 deep", is_deep(an, cfg))) if has}
 
-    tpu = {n: KernelConfig.from_dict(e["config"])
+    # the TPU configs without their TPU tile sizes (tm, ch)
+    tpu = {n: tpu_config(e["config"])
            for n, e in tuned_entries().items() if n in names}
     running = set().union(*(modes(n, best_config(n)) for n in names))
     out = {}
@@ -1403,9 +1491,10 @@ def lost_mode_cases(names, specs) -> dict:
 
 
 def tune_phase(torch, Tuner, tuned_mod, session_mod, bench, specs) -> dict:
-    """Short sweeps on the card: for each of ``TUNE_STENCILS``, every
-    candidate at its prior's step (fp32 and bf16 streams, the xla gold),
-    then the prior once more through the isolated worker, then one
+    """Short sweeps on the card: for each of ``TUNE_STENCILS``, the
+    candidates of its labels at its prior's step (fp32 and bf16 streams,
+    the tiles and the xla gold of the 2D stencil's), then the prior once
+    more through the isolated worker, then one
     profiler trace.  Writes only under a temporary directory; raises
     unless every kind was measured with no error and no failed check."""
     from drstencil_tpu_torch.ir.spec import load_stc
@@ -1419,14 +1508,14 @@ def tune_phase(torch, Tuner, tuned_mod, session_mod, bench, specs) -> dict:
         tuned_mod.TUNED_GPU_PATH = os.path.join(tmp, "tuned_gpu.json")
         try:
             entries = []
-            for name in TUNE_STENCILS:
+            for name, labels in TUNE_STENCILS:
                 spec = specs.get(name) or load_stc(
                     os.path.join(bench, name + ".stc"))
                 prior = representative(tuned_mod.best_config(name),
                                        spec.ndim)
                 tuner = Tuner(spec, tmp, pairs=TUNE_PAIRS,
                               config_timeout_s=TUNE_TIMEOUT_S)
-                res = tuner.sweep(label_filter=f"*_fu{prior.step}*",
+                res = tuner.sweep(label_filter=labels.format(step=prior.step),
                                   log=lambda m: print("tune " + m))
                 ledger = dict(tuner.ledger)
                 entries += list(ledger.values())
@@ -1440,7 +1529,7 @@ def tune_phase(torch, Tuner, tuned_mod, session_mod, bench, specs) -> dict:
                         "error")} for k, e in sorted(ledger.items())}}
                 print("tune " + json.dumps({name: out["sweeps"][name]}))
             # the prior once more, in its own worker process
-            name = TUNE_STENCILS[0]
+            name = TUNE_STENCILS[0][0]
             spec = load_stc(os.path.join(bench, name + ".stc"))
             prior = representative(tuned_mod.best_config(name), spec.ndim)
             iso = Tuner(spec, os.path.join(tmp, "isolated"),

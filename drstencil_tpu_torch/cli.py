@@ -2,10 +2,12 @@
 
 The port of ``drstencil_tpu/cli.py``: the same flags, emitting a standalone
 program specialised to one stencil + config whose kernel is CUDA C++ for
-Hopper (``drstencil_tpu_torch/emit.py``).  The TPU-only flags (``--bx``,
-``--ch``, ``--lane-mode``, ``--jfix``, ``--prefetch``) are accepted,
-checked as the JAX emitter checks them and recorded in the program's
-header; they change nothing else.
+Hopper (``drstencil_tpu_torch/emit.py``).  ``--bx`` sets ``tm`` and
+``--ch`` sets ``ch`` as in the JAX CLI, here the CTA's segment (rows of
+axis 0 it walks) and column (0 = the generator's choice); the TPU-only
+flags (``--lane-mode``, ``--jfix``, ``--prefetch``) are accepted, checked
+as the JAX emitter checks them and recorded in the program's header; they
+change nothing else.
 
     python -m drstencil_tpu_torch.cli benchmarks/2d5pt_star.stc --step 4 \
         --trapezoid --check -o out.py && python out.py --check
@@ -30,8 +32,8 @@ def main(argv=None):
     ap.add_argument("--step", type=int, default=1)
     ap.add_argument("--dist", type=int, default=0)
     ap.add_argument("--bx", type=int, default=0,
-                    help="TPU strip rows; recorded, no effect (the CTA tile "
-                    "is the kernel's own)")
+                    help="rows (planes in 3D) of axis 0 one CTA streams "
+                    "through: the segment (0 = auto)")
     ap.add_argument("--merge-forward", type=int, default=5)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
@@ -43,7 +45,8 @@ def main(argv=None):
                     help="TPU lane-shift strategy; recorded, and gates "
                     "--vfuse as in the JAX package")
     ap.add_argument("--ch", type=int, default=0,
-                    help="TPU accumulation chunk rows; recorded, no effect")
+                    help="output cells of one CTA across the other axes: a "
+                    "2D strip's width, a 3D column's TY*TX (0 = auto)")
     ap.add_argument("--vfuse", action="store_true",
                     help="with --trapezoid: the JAX package's value-fused "
                     "levels; the same kernel here")

@@ -2,7 +2,8 @@
 
 The port imports nothing of ``drstencil_tpu``, so objects cross as plain
 fields and numpy arrays: a JAX ``StencilSpec`` as its fields, a
-``KernelConfig`` as its dict, and ping-pong state as the JAX side's
+``KernelConfig`` as its dict (its TPU tile sizes left behind), and
+ping-pong state as the JAX side's
 real-shaped arrays (already unpadded by its ``unpad_state``).  A bfloat16
 state crosses through float32, which holds every bfloat16 value exactly.
 The plain-tile experiment's state crosses as the real-shaped data block:
@@ -21,6 +22,7 @@ from drstencil_tpu_torch.ir.spec import StencilSpec
 from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.ops.stream import resolve_device, state_dtype
 from drstencil_tpu_torch.parallel import stream_shard
+from drstencil_tpu_torch.tune.tuned import tpu_config
 
 
 def spec_from_fields(name: str, dims, iterations: int, taps) -> StencilSpec:
@@ -29,7 +31,10 @@ def spec_from_fields(name: str, dims, iterations: int, taps) -> StencilSpec:
 
 
 def config_from_dict(d: dict) -> KernelConfig:
-    return KernelConfig.from_dict(d)
+    """A JAX ``KernelConfig``'s dict as the port's config, without the TPU
+    tile sizes ``tm`` and ``ch``: on Hopper they name the CTA's segment
+    and column, which the TPU's values are not."""
+    return tpu_config(d)
 
 
 def state_from_numpy(a: np.ndarray, b: np.ndarray, device=None,

@@ -10,7 +10,9 @@ target changed from a Pallas kernel to a CUDA one:
   own kernel of that one plan (``ops/codegen.cuda_source``, which
   ``ops/kernels.plan_kernel`` builds for the library), streamed along
   axis 0 with four outputs per thread, with column, segment, frame,
-  levels and dims as ``constexpr``, the levels written out one by one,
+  levels and dims as ``constexpr``, the segments sized for
+  ``codegen.SM_COUNT`` SMs (an H100 SXM's; the library sizes them for the
+  card it runs on), the levels written out one by one,
   and the taps of a level unrolled into straight-line ``fmaf``s with
   immediate shared-memory offsets and float literals — no tap table is
   passed.  ``build_call("cuda")`` compiles it with ``nvcc`` for ``sm_90a``
@@ -29,10 +31,12 @@ and nothing of this package.
 
 This module is written on the port's own IR (``ir/passes.analyze``,
 ``ops/stream.level_plan``, ``ops/kernels.tile_shape``).  It takes
-``native_bridge.emit``'s arguments; the TPU-only ones (``tm``, ``ch``,
-``lane_mode``, ``jfix``, ``prefetch``) are checked as the JAX emitter
-checks them, recorded in the program's header, and change nothing else
-(``ops/config.py``).  Factor mode has no emitter in either package.
+``native_bridge.emit``'s arguments.  ``tm`` and ``ch`` (``--bx`` and
+``--ch``, 0 = the generator's choice) are the CTA's segment and column
+(``ops/config.py``), rejected where the geometry names no such tile; the
+TPU-only ones (``lane_mode``, ``jfix``, ``prefetch``) are checked as the
+JAX emitter checks them, recorded in the program's header, and change
+nothing else.  Factor mode has no emitter in either package.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from typing import Union
 
 from drstencil_tpu_torch.ir.passes import Analysis, analyze
 from drstencil_tpu_torch.ir.spec import StencilSpec, parse_stc
-from drstencil_tpu_torch.ops import kernels
+from drstencil_tpu_torch.ops import codegen, kernels
 from drstencil_tpu_torch.ops.codegen import (EmitError, cuda_source,
                                              float32_literal, literal_value)
 from drstencil_tpu_torch.ops.config import KernelConfig
@@ -134,7 +138,7 @@ def emit(spec_or_stc_text: Union[StencilSpec, str], name: str = "stencil",
     plan = level_plan(an, cfg)      # the library's remaining rejections
     slab = ((spec.dims[0] + 2 * plan.frame,) + tuple(spec.dims[1:])
             if shards else tuple(spec.dims))
-    tile = kernels.tile_shape(plan, slab)
+    tile = kernels.tile_shape(plan, slab, codegen.SM_COUNT)
 
     global_dims = ((spec.dims[0] * shards,) + tuple(spec.dims[1:])
                    if shards else tuple(spec.dims))
@@ -151,9 +155,11 @@ def emit(spec_or_stc_text: Union[StencilSpec, str], name: str = "stencil",
     o.append(f"#   plan    : levels={plan.levels} reach={plan.reach} "
              f"frame={plan.frame} taps/level={len(plan.coeffs)} "
              f"tile={'x'.join(map(str, tile))} config={cfg.label()}")
+    o.append(f"#   tile    : bx={tm} ch={ch} (0 = the generator's), "
+             f"segments sized for {codegen.SM_COUNT} SMs")
     o.append("#   knobs recorded (TPU-only, no effect here): "
-             f"bx={tm} ch={ch} lane_mode={lane_mode or 'auto'} "
-             f"jfix={jfix} prefetch={prefetch}")
+             f"lane_mode={lane_mode or 'auto'} jfix={jfix} "
+             f"prefetch={prefetch}")
     o.append("import argparse, time")
     o.append("import numpy as np")
     o.append("")
@@ -192,7 +198,7 @@ def emit(spec_or_stc_text: Union[StencilSpec, str], name: str = "stencil",
     o.append("")
     o.append("CUDA_SOURCE = r'''")
     o.append(cuda_source(plan, slab, dtype, bool(shards), spec.name,
-                         cfg.label()))
+                         cfg.label(), sms=codegen.SM_COUNT))
     o.append("'''")
     o.append("")
     o.append(plain_level_source(plan))

@@ -43,7 +43,7 @@ def entry(device=None):
     CUDA)."""
     prog = StencilProgram(
         _bench_spec("2d5pt_star", ENTRY_DIMS),
-        KernelConfig(variant="stream", step=1, tm=128), device)
+        KernelConfig(variant="stream", step=1), device)
     state = prog.init_state(0)
     return prog.pair_fn(), (state["a"], state["b"])
 
@@ -86,7 +86,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
         raise RuntimeError("plain decomposition gave a non-finite state")
 
     spec2d = _bench_spec("2d5pt_star", (16 * n, 256))
-    cfg = KernelConfig(variant="stream", step=2, tm=16, trapezoid=True)
+    cfg = KernelConfig(variant="stream", step=2, trapezoid=True)
     mesh1 = halo.make_mesh(n, devices=devices)
     spair, g = stream_shard.sharded_stream_pair(spec2d, cfg, mesh1)
     rng = np.random.default_rng(1)

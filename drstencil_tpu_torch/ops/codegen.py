@@ -103,7 +103,10 @@ import numpy as np
 SMEM_LIMIT = 232448
 SMEM_TARGET = 113 * 1024
 SMEM_RESERVED = 1024
-# SMs of an H100 SXM: the segment count is chosen to fill them
+# SMs of an H100 SXM.  The segment count is chosen to fill the card's SMs:
+# on a card the library passes the count it reads from the device
+# (``ops/kernels.sm_count``); this value is only that of text made without
+# one (the tests, the g++ emulation) and of the emitter's programs
 SM_COUNT = 132
 # outputs a thread computes at a time along x
 QUAD = 4
@@ -297,6 +300,21 @@ def _segment(interior: int, n_cols: int, warmup: int, slots: int) -> int:
     return best[1]
 
 
+def _asked_segment(segment: int, interior: int, warmup: int) -> int:
+    """A segment the caller asked for (``KernelConfig.tm``), cut to the
+    interior: shorter than ``warmup`` only where it covers the whole
+    interior, as ``_segment`` requires of its own."""
+    if segment < 1:
+        raise ValueError(f"segment tm={segment} must be at least 1")
+    seg = min(segment, max(1, interior))
+    if seg < warmup and seg < interior:
+        raise ValueError(
+            f"segment tm={segment} is shorter than the {warmup} planes a "
+            f"segment runs beyond its own (and than the {interior}-plane "
+            "interior)")
+    return seg
+
+
 def is_factor(plan) -> bool:
     """Whether ``plan`` is a factor-mode plan (``ops/kernels.FactorTaps``)."""
     return hasattr(plan, "v2")
@@ -313,13 +331,53 @@ def window_regs(plan) -> int:
     return QUAD * L * (2 * r + 1)
 
 
-def geometry(plan, dims) -> Geometry:
+def _column_entries(dims, frame: int):
+    """(nominal column, x width, staged plane (ey, ex) cut to the grid) of
+    every ``STRIP_2D`` strip (2D) or ``COLUMNS_3D`` column (3D), widest
+    first."""
+    hx, nx = _ceil_to(frame, QUAD), _ceil_to(dims[-1], QUAD)
+    if len(dims) == 2:
+        return [(ex - 2 * hx, ex, (1, min(ex, nx + 2 * hx)))
+                for ex in STRIP_2D if ex - 2 * hx >= QUAD]
+    return [(ty * tx, tx, (min(ty, dims[1]) + 2 * frame,
+                           min(tx, nx) + 2 * hx))
+            for ty, tx in COLUMNS_3D]
+
+
+def columns(plan, dims) -> Tuple[int, ...]:
+    """The columns (``KernelConfig.ch`` values) :func:`geometry` names for
+    ``plan`` on ``dims``, widest first; some may not fit shared memory."""
+    out = []
+    for c, _, _ in _column_entries(tuple(int(d) for d in dims),
+                                   int(plan.frame)):
+        if c not in out:
+            out.append(c)
+    return tuple(out)
+
+
+def geometry(plan, dims, sms: int = SM_COUNT, segment=None,
+             column=None) -> Geometry:
     """The :class:`Geometry` of ``plan`` (a ``LevelTaps`` or, on a 2D grid,
-    a ``FactorTaps``) on ``dims``."""
+    a ``FactorTaps``) on ``dims`` for a card of ``sms`` SMs.
+
+    ``segment`` (``KernelConfig.tm``) is the planes of axis 0 one CTA
+    walks, and ``column`` (``KernelConfig.ch``) the CTA's output cells
+    across the other axes, named before they are cut to the grid: a 2D
+    strip's ``ex - 2 * hx`` for an ``ex`` of ``STRIP_2D``, a 3D column's
+    ``TY * TX`` for a pair of ``COLUMNS_3D`` (of two pairs with one product,
+    the wider ``TX``).  Either defaults to the plan's own ``segment`` /
+    ``column``, and ``None`` there to the generator's choice: the first
+    column whose rings fit ``SMEM_TARGET`` and the segment that fills the
+    ``sms`` SMs in the fewest steps (``_segment``).  A column that names no
+    entry or whose rings exceed ``SMEM_LIMIT``, and a segment shorter than
+    ``Geometry.warmup`` that does not cover the interior, raise
+    ``ValueError``."""
     dims = tuple(int(d) for d in dims)
     ndim = len(dims)
     if ndim not in (2, 3) or plan.ndim != ndim:
         raise ValueError(f"a {plan.ndim}D table on a {ndim}D grid")
+    segment = plan.segment if segment is None else segment
+    column = plan.column if column is None else column
     H, r, L = int(plan.frame), int(plan.reach), int(plan.levels)
     factor = is_factor(plan)
     hx = _ceil_to(H, QUAD)
@@ -340,17 +398,27 @@ def geometry(plan, dims) -> Geometry:
         return 4 * (2 * guard + (L * ring + (ahead + 1 if ahead else 0))
                     * ey * ex)
 
-    if ndim == 2:
-        shapes = [(1, min(ex, nx + 2 * hx)) for ex in STRIP_2D
-                  if ex - 2 * hx >= QUAD]
+    entries = _column_entries(dims, H)
+    if column is None:
+        shapes = [e[2] for e in entries]
+        fits = ([s for s in shapes if smem(*s) <= SMEM_TARGET]
+                or [s for s in shapes if smem(*s) <= SMEM_LIMIT])
+        if not fits:
+            raise ValueError(
+                f"frame {H} is too wide for a shared-memory window")
+        ey, ex = fits[0]
     else:
-        shapes = [(min(ty, dims[1]) + 2 * H, min(tx, nx) + 2 * hx)
-                  for ty, tx in COLUMNS_3D]
-    fits = ([s for s in shapes if smem(*s) <= SMEM_TARGET]
-            or [s for s in shapes if smem(*s) <= SMEM_LIMIT])
-    if not fits:
-        raise ValueError(f"frame {H} is too wide for a shared-memory window")
-    ey, ex = fits[0]
+        named = [e for e in entries if e[0] == column]
+        if not named:
+            raise ValueError(
+                f"column ch={column} names no "
+                f"{'strip' if ndim == 2 else 'column'} of this plan: one of "
+                f"{sorted({e[0] for e in entries})}")
+        ey, ex = max(named, key=lambda e: e[1])[2]
+        if smem(ey, ex) > SMEM_LIMIT:
+            raise ValueError(
+                f"column ch={column}: its rings take {smem(ey, ex)} bytes of "
+                f"shared memory, more than {SMEM_LIMIT}")
     column = (ex - 2 * hx,) if ndim == 2 else (ey - 2 * H, ex - 2 * hx)
     quads = ey * ex // QUAD
     threads = min(_ceil_to(quads, 32),
@@ -362,11 +430,15 @@ def geometry(plan, dims) -> Geometry:
     assert not window or quads <= threads
     min_blocks = min(g.ctas_per_sm,
                      2 if ndim == 3 or (factor and not in_regs) else 4)
-    # a factor plan's registers, not its shared memory, decide how many of
-    # its CTAs an SM holds (at step 1 shared memory would admit six, its 88
-    # registers five): its segments fill the ones the launch bound promises
-    slots = SM_COUNT * (min_blocks if factor else g.ctas_per_sm)
-    seg = _segment(g.interior, g.n_columns, g.warmup, slots)
+    if segment is None:
+        # a factor plan's registers, not its shared memory, decide how many
+        # of its CTAs an SM holds (at step 1 shared memory would admit six,
+        # its 88 registers five): its segments fill the ones the launch
+        # bound promises
+        slots = int(sms) * (min_blocks if factor else g.ctas_per_sm)
+        seg = _segment(g.interior, g.n_columns, g.warmup, slots)
+    else:
+        seg = _asked_segment(int(segment), g.interior, g.warmup)
     return dataclasses.replace(g, tile=(seg,) + column,
                                min_blocks=min_blocks)
 
@@ -503,13 +575,14 @@ def _factor_quads(plan, g: Geometry):
 
 
 def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
-                label: str = "") -> str:
+                label: str = "", sms: int = SM_COUNT) -> str:
     """The CUDA C++ text of ``plan``'s kernel on a grid (or ghosted slab)
-    of ``dims`` in ``dtype`` state; ``shard`` adds the axis-0 store range
-    ``[s_lo, s_hi)`` as kernel arguments."""
+    of ``dims`` in ``dtype`` state for a card of ``sms`` SMs, in the
+    plan's geometry (:func:`geometry`); ``shard`` adds the axis-0 store
+    range ``[s_lo, s_hi)`` as kernel arguments."""
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r}: the kernels take {DTYPES} state")
-    g = geometry(plan, dims)
+    g = geometry(plan, dims, sms)
     ndim, H, L, r = g.ndim, g.frame, g.levels, g.reach
     if g.factor and shard:
         raise EmitError("factor mode has no shard-local build")
@@ -1035,10 +1108,11 @@ class TileGeometry:
             * self.ex
 
 
-def tile2d_geometry(taps, rows: int, cols: int, tm: int) -> TileGeometry:
+def tile2d_geometry(taps, rows: int, cols: int, tm: int,
+                    sms: int = SM_COUNT) -> TileGeometry:
     """The :class:`TileGeometry` of ``tile2d_fused`` for ``taps`` (an
     ``ops/kernels.Tile2dTaps``) on ``rows`` data rows of ``cols`` columns
-    padded by ``tm`` rows."""
+    padded by ``tm`` rows, its segments filling ``sms`` SMs."""
     h = int(taps.halo)
     hx = _ceil_to(h, QUAD)
     ring = 2 * h + 2 + AHEAD_2D
@@ -1052,7 +1126,7 @@ def tile2d_geometry(taps, rows: int, cols: int, tm: int) -> TileGeometry:
     g = TileGeometry(rows=rows, cols=cols, tm=tm, h=h, hx=hx, ex=ex,
                      tile=(1, ex - 2 * hx), ring=ring, threads=threads,
                      min_blocks=1, vec=cols % QUAD == 0)
-    seg = _segment(rows, g.grid[0], 2 * h, SM_COUNT * g.ctas_per_sm)
+    seg = _segment(rows, g.grid[0], 2 * h, int(sms) * g.ctas_per_sm)
     return dataclasses.replace(g, tile=(seg, ex - 2 * hx),
                                min_blocks=min(g.ctas_per_sm, 4))
 
@@ -1108,13 +1182,13 @@ def _row_name(di: int) -> str:
 
 
 def tile2d_source(taps, rows: int, cols: int, tm: int,
-                  name: str = "tile2d") -> str:
+                  name: str = "tile2d", sms: int = SM_COUNT) -> str:
     """The CUDA C++ text of ``tile2d_fused`` for one table (``taps``, an
     ``ops/kernels.Tile2dTaps``) on a ``(rows + 2 * tm, cols)`` fp32 padded
     layout: data rows ``[tm, tm + rows)`` written, every column, columns
     wrapping around ``cols``; pad rows read as the layout holds them and
-    never written."""
-    g = tile2d_geometry(taps, rows, cols, tm)
+    never written; ``sms`` is the card's SM count."""
+    g = tile2d_geometry(taps, rows, cols, tm, sms)
     quad_text, dis = _tile_quad(taps)
     o = [f"// {name}: tile2d_fused for one table of {taps.ntaps} taps in "
          f"{len(taps.groups)} column shifts, halo {g.h},",

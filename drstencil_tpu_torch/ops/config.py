@@ -8,8 +8,18 @@ the TPU's Mosaic pipeline; on Hopper they mean:
 - ``step``, ``distance``, ``merge_forward``: unchanged (analysis knobs);
 - ``trapezoid``, ``block``: unchanged — they pick the tap table and the
   number of levels each launch applies (``ops/stream.level_plan``);
-- ``tm``, ``ch``: ignored — the Hopper kernels pick their own column and
-  segment (``ops/kernels.tile_shape``);
+- ``tm``, ``ch``: the CTA's tile (``ops/codegen.geometry``), ``None`` for
+  the generator's own.  ``tm`` is the segment: the planes (2D: rows) of
+  axis 0 one CTA walks, as the JAX package's ``tm`` is the tile's rows
+  along the streamed axis; shorter than the segment's warm-up
+  (``Geometry.warmup``) it is rejected unless it covers the whole
+  interior.  ``ch`` is the column: the CTA's output cells across the
+  other axes, a 2D strip's width ``ex - 2 * hx`` for an ``ex`` of
+  ``codegen.STRIP_2D``, a 3D column's ``TY * TX`` for a pair of
+  ``codegen.COLUMNS_3D``, named before either is cut to the grid; a value
+  that names no entry, or whose rings exceed shared memory, is rejected.
+  The TPU's values (``benchmarks/tuned.json``) mean other things and
+  never reach this geometry (``tune/tuned.tpu_config``);
 - ``lane_mode``, ``jfix``: no-ops — lane rolls and the j-frame restore
   have no counterpart; the frozen frame falls out of never writing it.
   ``lane_mode`` still gates ``vfuse`` as in the JAX package, so both

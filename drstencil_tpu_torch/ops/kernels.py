@@ -54,6 +54,7 @@ kernel or raise.  Each wrapper's ``launches`` counts its kernel's launches
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -63,7 +64,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,13 +106,17 @@ class LevelTaps:
     """What one kernel launch applies: ``levels`` levels of the tap table
     (``offsets`` (n, ndim) int32 sorted with ``coeffs`` (n,) float32), each
     reaching ``reach`` cells, with the frozen frame ``frame`` =
-    ``levels * reach`` on every axis."""
+    ``levels * reach`` on every axis.  ``segment`` and ``column`` are the
+    CTA's tile where the config names it (``KernelConfig.tm`` / ``ch``;
+    ``codegen.geometry``), ``None`` for the generator's choice."""
 
     offsets: np.ndarray
     coeffs: np.ndarray
     levels: int
     reach: int
     frame: int
+    segment: Optional[int] = None
+    column: Optional[int] = None
 
     @property
     def ndim(self) -> int:
@@ -124,7 +129,8 @@ class FactorTaps:
     reach ``reach`` = 1 alternating the tables V1 and V2; every V2 level
     adds the residual table R read from the level two back at reach
     ``2 * reach``.  Each table is (offsets (n, 2) int32, coeffs (n,)
-    float32) in sorted order; ``frame`` = ``levels * reach``."""
+    float32) in sorted order; ``frame`` = ``levels * reach``;
+    ``segment`` and ``column`` as for ``LevelTaps``."""
 
     v1: Tuple[np.ndarray, np.ndarray]
     v2: Tuple[np.ndarray, np.ndarray]
@@ -132,6 +138,8 @@ class FactorTaps:
     levels: int
     reach: int
     frame: int
+    segment: Optional[int] = None
+    column: Optional[int] = None
 
     ndim = 2
 
@@ -145,25 +153,52 @@ def is_factor(taps) -> bool:
     return isinstance(taps, FactorTaps)
 
 
-def tile_shape(taps, dims) -> Tuple[int, ...]:
-    """Output cells of one CTA of the kernel that runs ``taps`` (a
-    ``LevelTaps`` or a ``FactorTaps``) on a grid of ``dims``: ``(SEG, TX)``
-    / ``(SEG, TY, TX)`` — a segment of axis 0 and the column it walks
-    (``codegen.Geometry``)."""
-    return codegen.geometry(taps, dims).tile
+def sm_count(device=None) -> int:
+    """The SMs a plan's segments are chosen to fill: on a CUDA ``device``
+    (``None``: the current one, where there is a card) the count the
+    device reports; without a card ``codegen.SM_COUNT``, the count of text
+    made for no card (the tests, the emulation)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return codegen.SM_COUNT
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return codegen.SM_COUNT
+    return _device_sms(torch.cuda.current_device() if device.index is None
+                       else device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def geometry(taps, dims, sms: Optional[int] = None) -> codegen.Geometry:
+    """``codegen.geometry`` of ``taps`` (a ``LevelTaps`` or a
+    ``FactorTaps``, with its segment and column) on a grid of ``dims``, for
+    ``sms`` SMs (default :func:`sm_count`)."""
+    return codegen.geometry(taps, dims, sm_count() if sms is None else sms)
+
+
+def tile_shape(taps, dims, sms: Optional[int] = None) -> Tuple[int, ...]:
+    """Output cells of one CTA of the kernel that runs ``taps`` on a grid
+    of ``dims``: ``(SEG, TX)`` / ``(SEG, TY, TX)`` — a segment of axis 0
+    and the column it walks (:func:`geometry`)."""
+    return geometry(taps, dims, sms).tile
 
 
 def n_buffers(taps, dims) -> int:
     """fp32 planes (rows in 2D) one CTA keeps in shared memory: a ring of
     ``2 * reach + 2`` per level, plus the staging rows of a plan that
     copies ahead."""
-    return codegen.geometry(taps, dims).window_planes
+    return geometry(taps, dims).window_planes
 
 
 def smem_bytes(taps, dims) -> int:
     """Shared memory of one CTA, fp32 whatever the storage dtype (the
     load converts)."""
-    return codegen.geometry(taps, dims).smem_bytes
+    return geometry(taps, dims).smem_bytes
 
 
 # -- build -------------------------------------------------------------------
@@ -323,6 +358,18 @@ class PlanKernel:
             raise RuntimeError("plan kernel launch failed: "
                                + self._lib.error_string(err).decode())
 
+    def ctas_per_sm(self):
+        """CTAs an SM holds of this build by its registers (the ``ptxas``
+        log: 256-register blocks per warp of a 64K file), threads and
+        shared memory (``geometry.ctas_per_sm``): an occupancy model, None
+        where there is no log."""
+        regs = self.ptxas().get("registers")
+        if not regs:
+            return None
+        per_warp = -(-regs * 32 // 256) * 256
+        by_regs = 65536 // (per_warp * (self.geometry.threads // 32))
+        return min(by_regs, self.geometry.ctas_per_sm)
+
     def ptxas(self) -> dict:
         """Registers per thread and spilled bytes from the build's
         ``-Xptxas -v`` log (empty where there is no log)."""
@@ -340,9 +387,12 @@ _PLANS: dict = {}
 _PLANS_LOCK = threading.Lock()
 
 
-def plan_key(taps, dims, dtype, shard: bool = False) -> tuple:
+def plan_key(taps, dims, dtype, shard: bool = False,
+             sms: Optional[int] = None) -> tuple:
     """What a plan's kernel is specialised to (``taps`` a ``LevelTaps`` or
-    a ``FactorTaps``)."""
+    a ``FactorTaps``): grid, storage type, shard, tables, levels, reach,
+    the asked segment and column, and the SM count (default
+    :func:`sm_count`)."""
     tables = ((taps.v1, taps.v2, taps.r) if is_factor(taps)
               else ((taps.offsets, taps.coeffs),))
     return (len(dims), tuple(int(d) for d in dims),
@@ -350,7 +400,8 @@ def plan_key(taps, dims, dtype, shard: bool = False) -> tuple:
             *(b for offsets, coeffs in tables for b in (
                 np.ascontiguousarray(offsets, dtype=np.int32).tobytes(),
                 np.ascontiguousarray(coeffs, dtype=np.float32).tobytes())),
-            int(taps.levels), int(taps.reach))
+            int(taps.levels), int(taps.reach), taps.segment, taps.column,
+            sm_count() if sms is None else int(sms))
 
 
 def _plan(key, make) -> PlanKernel:
@@ -361,35 +412,42 @@ def _plan(key, make) -> PlanKernel:
         return _PLANS[key]
 
 
-def plan_of(taps, dims, dtype, shard: bool) -> PlanKernel:
+def plan_of(taps, dims, dtype, shard: bool,
+            sms: Optional[int] = None) -> PlanKernel:
     """The (possibly unbuilt) :class:`PlanKernel` of one key."""
-    key = plan_key(taps, dims, dtype, shard)
+    key = plan_key(taps, dims, dtype, shard, sms)
     return _plan(key, lambda: PlanKernel(
-        codegen.cuda_source(taps, key[1], key[2], key[3]),
-        codegen.geometry(taps, key[1]), key[3]))
+        codegen.cuda_source(taps, key[1], key[2], key[3], sms=key[-1]),
+        codegen.geometry(taps, key[1], key[-1]), key[3]))
 
 
-def tile2d_plan(taps: "Tile2dTaps", shape, tm: int) -> PlanKernel:
+def tile2d_plan(taps: "Tile2dTaps", shape, tm: int,
+                sms: Optional[int] = None) -> PlanKernel:
     """The (possibly unbuilt) ``tile2d_fused`` kernel of ``taps`` on a
-    ``(R + 2 * tm, C)`` padded layout of ``shape``."""
+    ``(R + 2 * tm, C)`` padded layout of ``shape`` for ``sms`` SMs
+    (default :func:`sm_count`)."""
     rows, cols = int(shape[0]) - 2 * tm, int(shape[1])
-    key = ("tile2d", rows, cols, tm, taps.groups, taps.halo)
+    sms = sm_count() if sms is None else int(sms)
+    key = ("tile2d", rows, cols, tm, taps.groups, taps.halo, sms)
     return _plan(key, lambda: PlanKernel(
-        codegen.tile2d_source(taps, rows, cols, tm),
-        codegen.tile2d_geometry(taps, rows, cols, tm), False))
+        codegen.tile2d_source(taps, rows, cols, tm, sms=sms),
+        codegen.tile2d_geometry(taps, rows, cols, tm, sms), False))
 
 
-def plan_kernel(taps, dims, dtype, shard: bool = False) -> PlanKernel:
+def plan_kernel(taps, dims, dtype, shard: bool = False,
+                sms: Optional[int] = None) -> PlanKernel:
     """The loaded kernel of ``taps`` on a grid (a ghosted slab with
-    ``shard``) of ``dims`` in ``dtype`` (a torch dtype or its name), built
-    by nvcc unless its library is on disk."""
-    return plan_of(taps, dims, dtype, shard).load()
+    ``shard``) of ``dims`` in ``dtype`` (a torch dtype or its name) for
+    ``sms`` SMs (default :func:`sm_count`: the current card's), built by
+    nvcc unless its library is on disk."""
+    return plan_of(taps, dims, dtype, shard, sms).load()
 
 
 def build_plans(requests) -> list:
     """Build and load the kernels of many plans, each request a
     :class:`PlanKernel` (e.g. :func:`tile2d_plan`'s) or a ``(taps, dims,
-    dtype, shard)`` tuple: one nvcc per missing library, up to
+    dtype, shard[, sms])`` tuple (for the current card's SM count where
+    ``sms`` is left out): one nvcc per missing library, up to
     ``BUILD_WORKERS`` at once.  Every build is tried; the first failure is
     raised afterwards.  Returns the :class:`PlanKernel` of each request."""
     plans = [r if isinstance(r, PlanKernel) else plan_of(*r)
@@ -617,12 +675,15 @@ class LevelsKernel:
         self.replaces = replaces
         self.shard = shard
         self.launches = 0
-        # (id(taps), shape, dtype) -> (taps, its loaded PlanKernel): a
-        # launch does not key the plan again; holding ``taps`` keeps its id
+        # (id(taps), shape, dtype, device) -> (taps, its loaded
+        # PlanKernel): a launch does not key the plan again; holding
+        # ``taps`` keeps its id
         self._plans: dict = {}
 
     def _launch(self, src, dst, taps, store, stream) -> None:
-        key = (id(taps), tuple(src.shape), src.dtype)
+        """Launch on ``src``'s device, which is the current one: the plan is
+        built for its SM count."""
+        key = (id(taps), tuple(src.shape), src.dtype, src.device)
         hit = self._plans.get(key)
         if hit is None or hit[0] is not taps:
             hit = self._plans[key] = (taps, plan_kernel(
@@ -733,7 +794,7 @@ class Tile2dKernel:
 
     def __init__(self):
         self.launches = 0
-        # (id(taps), shape, tm) -> (taps, its loaded PlanKernel)
+        # (id(taps), shape, tm, device) -> (taps, its loaded PlanKernel)
         self._plans: dict = {}
 
     def __call__(self, src: torch.Tensor, dst: torch.Tensor, taps: Tile2dTaps,
@@ -756,11 +817,11 @@ class Tile2dKernel:
                 f"{TILE2D_MAX_GROUPS}")
         if _check_fp32_pair(self.name, src, dst):
             return self.plain(src, dst, taps, tm)
-        key = (id(taps), tuple(src.shape), tm)
+        key = (id(taps), tuple(src.shape), tm, src.device)
         hit = self._plans.get(key)
         if hit is None or hit[0] is not taps:
-            hit = self._plans[key] = (taps, tile2d_plan(taps, src.shape,
-                                                        tm).load())
+            hit = self._plans[key] = (taps, tile2d_plan(
+                taps, src.shape, tm, sm_count(src.device)).load())
         plan = hit[1]
         if plan.geometry.vec and (src.data_ptr() % 16 or dst.data_ptr() % 16):
             raise ValueError(f"{self.name} reads and writes 16-byte quads: "

@@ -23,6 +23,8 @@ reject the same configurations.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -154,9 +156,17 @@ def factor_plan(an: Analysis) -> FactorTaps:
 def level_plan(an: Analysis, cfg: KernelConfig):
     """The level schedule of one application (stream.py:452-507): which
     tap table, how many levels, and each level's reach ``H / L`` — a
-    ``LevelTaps``, or a ``FactorTaps`` for ``cfg.factor``."""
+    ``LevelTaps``, or a ``FactorTaps`` for ``cfg.factor`` — carrying the
+    CTA's segment ``cfg.tm`` and column ``cfg.ch`` (``codegen.geometry``
+    checks them against a grid)."""
     check_geometry(an)
     state_dtype(cfg.dtype)
+    for knob in ("tm", "ch"):
+        value = getattr(cfg, knob)
+        if value is not None and (isinstance(value, bool)
+                                  or not isinstance(value, int) or value < 1):
+            raise ValueError(f"{knob}={value!r} must be a positive int "
+                             "or None")
     s_levels = n_levels(an, cfg)
     if cfg.block > 1 and not (cfg.trapezoid and an.step > 1):
         raise ValueError("block > 1 requires trapezoid with step > 1")
@@ -176,7 +186,7 @@ def level_plan(an: Analysis, cfg: KernelConfig):
                 "are width N, but chained levels need width-wb inputs"
             )
     if plan is not None:
-        return plan
+        return dataclasses.replace(plan, segment=cfg.tm, column=cfg.ch)
     if s_levels == 1:
         taps = an.fused
     elif cfg.block > 1:
@@ -193,7 +203,7 @@ def level_plan(an: Analysis, cfg: KernelConfig):
             f"{len(coeffs)} taps per level exceed the kernels' table of "
             f"{kernels.MAX_TAPS}; use trapezoid levels instead")
     return LevelTaps(offsets=offsets, coeffs=coeffs, levels=s_levels,
-                     reach=reach, frame=h)
+                     reach=reach, frame=h, segment=cfg.tm, column=cfg.ch)
 
 
 def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
@@ -214,7 +224,10 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
     for a shard at the edge of the mesh.  The off-axis frame stays frozen.
 
     On a CUDA device the plan's kernel is built here (or found in
-    ``build/plans``), not at the first call: a failed build raises now.
+    ``build/plans``) for the device's SM count, not at the first call: a
+    failed build raises now.  On every device the plan's geometry is
+    checked here, so that a segment or column the kernel would refuse
+    (``codegen.geometry``) is refused on the CPU too.
     """
     device = resolve_device(device)
     plan = level_plan(an, cfg)
@@ -228,8 +241,10 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
         kernel = kernels.kernel_for(len(dims), shard=not row_frame)
     if not row_frame:
         dims = (dims[0] + 2 * plan.frame,) + dims[1:]
+    sms = kernels.sm_count(device)
+    kernels.geometry(plan, dims, sms)
     if device.type == "cuda":
-        kernels.plan_kernel(plan, dims, dtype, shard=not row_frame)
+        kernels.plan_kernel(plan, dims, dtype, not row_frame, sms)
 
     def f(src: torch.Tensor, dst: torch.Tensor, *rows) -> torch.Tensor:
         if src.device != device or dst.device != device:

@@ -3,9 +3,18 @@
 The port's tuner (``tune.tuner``) records the winning config per stencil
 into ``drstencil_tpu_torch/tune/tuned_gpu.json`` (``TUNED_GPU_PATH``),
 monotone under the dtype-normalised objective, and never writes
-``benchmarks/tuned.json`` (the JAX package's TPU winners).  ``best_config`` reads a ``tuned_gpu.json``
-entry where there is one, else the ``tuned.json`` entry unchanged
-(``KernelConfig.from_dict`` keeps every field), else a curated default.
+``benchmarks/tuned.json`` (the JAX package's TPU winners).
+``best_config`` reads a ``tuned_gpu.json`` entry where there is one, else
+the ``tuned.json`` entry, else a curated default (``_DEFAULTS``).
+
+``tm`` and ``ch`` mean the CTA's segment and column on Hopper
+(``ops/config.py``), and a ``tuned_gpu.json`` entry keeps the values it
+was measured with.  The ``tuned.json`` entries and the curated defaults
+carry the TPU's tile sizes instead (``tm=64``, ``tm=8192``,
+``tm6160_ch3080``): read as Hopper values they would ask for 8192-plane
+segments or a column that names nothing, so every config taken from them
+comes with ``tm=None, ch=None`` (:func:`tpu_config`), the generator's own
+tile; every other field is kept.
 The roofline denominator is the card's own HBM bandwidth, chosen from its
 device name; an unknown card raises rather than borrow another's number.
 """
@@ -107,15 +116,27 @@ def load_table(path: str) -> dict:
         return {}
 
 
+def tpu_config(d: dict) -> KernelConfig:
+    """A config of the TPU's tables (``tuned.json``, ``_DEFAULTS``) as the
+    port runs it: every field kept but the TPU tile sizes ``tm`` and
+    ``ch``, which become ``None`` (the generator's segment and column)."""
+    return KernelConfig.from_dict(d).replace(tm=None, ch=None)
+
+
 def best_config(name: str) -> KernelConfig:
-    """The ``tuned_gpu.json`` winner, else the ``tuned.json`` one, else the
-    curated default."""
-    for path in (TUNED_GPU_PATH, TUNED_PATH):
-        try:
-            return KernelConfig.from_dict(load_table(path)[name]["config"])
-        except (KeyError, TypeError):
-            continue
-    return KernelConfig(**_DEFAULTS.get(name, {"variant": "stream"}))
+    """The ``tuned_gpu.json`` winner as recorded, else the ``tuned.json``
+    one, else the curated default (both without their TPU tile sizes:
+    :func:`tpu_config`)."""
+    try:
+        return KernelConfig.from_dict(
+            load_table(TUNED_GPU_PATH)[name]["config"])
+    except (KeyError, TypeError):
+        pass
+    try:
+        return tpu_config(load_table(TUNED_PATH)[name]["config"])
+    except (KeyError, TypeError):
+        pass
+    return tpu_config(_DEFAULTS.get(name, {"variant": "stream"}))
 
 
 def ledger_ms(entry: dict) -> float:

@@ -240,7 +240,8 @@ class Tuner:
                      if fnmatch.fnmatch(c.cfg.label(), label_filter)]
         random.Random(self.seed).shuffle(cands)
         # a short sweep must never do worse than the previous best: the
-        # TPU-tuned prior maps onto its collapsed representative
+        # prior (the card's winner, else the TPU winner without its TPU
+        # tile sizes: tuned.best_config) maps onto its representative
         prior = tuned_mod.best_config(self.spec.name)
         if prior.variant != "xla":
             prior = representative(prior, self.spec.ndim)

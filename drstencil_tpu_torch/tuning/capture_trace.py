@@ -49,7 +49,7 @@ def capture(name: str | None = None, sub: str = "trace") -> dict:
         cfg = best_config(name)
     else:
         spec = load_stc(os.path.join(BENCH_DIR, "2d5pt_star.stc"))
-        cfg = KernelConfig(variant="stream", step=1, tm=256)
+        cfg = KernelConfig(variant="stream", step=1)
     prog = StencilProgram(spec, cfg)
     kernels.reset_launches()
     with maybe_trace(trace_dir) as active:

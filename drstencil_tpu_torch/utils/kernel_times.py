@@ -22,7 +22,10 @@ per stencil the kernel's ms — the median over 5 repeats of the mean of 20
 launches (CUDA events, after 3 warmup launches) — and the SHA-256 of its
 result on a state drawn from seed 0: two trees whose digests agree on one
 card computed every cell alike.  ``--check`` adds the relative error
-against the plain version.
+against the plain version.  ``--default-tile`` runs each winner with the
+generator's tile (``tm=None, ch=None``) in place of the one it was tuned
+with, for its default geometry's time in the same call; the build report
+then gives each plan's tile and CTAs per SM beside the winner's.
 
 The file needs of its tree only ``kernels.kernel_for``, ``level_plan``,
 the tuned table, and for the factor and tile2d rows
@@ -81,14 +84,14 @@ def expand(names) -> list:
     return out
 
 
-def row_plan(name: str, dtype: str = "float32"):
+def row_plan(name: str, dtype: str = "float32", default_tile: bool = False):
     """(kernel, its taps, src shape, extra call arguments, plan request)
     of a row; the request is what ``kernels.build_plans`` builds, None
     where this tree does not build the row's kernel per plan."""
     stencil, *kind = name.split()
     spec = load_stc(os.path.join(BENCH_DIR, stencil + ".stc"))
     if not kind:
-        spec, plan = winner_plan(stencil, dtype)
+        spec, plan = winner_plan(stencil, dtype, default_tile)
         return (kernels.kernel_for(spec.ndim), plan, spec.dims, (),
                 (plan, spec.dims, dtype, False))
     if kind[0] == "factor":
@@ -110,10 +113,14 @@ def row_plan(name: str, dtype: str = "float32"):
             if hasattr(kernels, "tile2d_plan") else None)
 
 
-def winner_plan(name: str, dtype: str = "float32"):
-    """(spec, plan) of ``name``'s tuned winner in ``dtype`` state."""
+def winner_plan(name: str, dtype: str = "float32",
+                default_tile: bool = False):
+    """(spec, plan) of ``name``'s tuned winner in ``dtype`` state (with the
+    generator's tile where ``default_tile``)."""
     spec = load_stc(os.path.join(BENCH_DIR, name + ".stc"))
     cfg = best_config(name).replace(dtype=dtype)
+    if default_tile:
+        cfg = cfg.replace(tm=None, ch=None)
     return spec, level_plan(analyze(spec, cfg.step, cfg.distance,
                                     cfg.merge_forward), cfg)
 
@@ -137,12 +144,12 @@ def launch_ms(fn, device) -> float:
 
 
 def kernel_row(name: str, device, dtype: str = "float32",
-               check: bool = False) -> dict:
+               check: bool = False, default_tile: bool = False) -> dict:
     """The kernel of row ``name`` at the ``.stc`` size (a tile2d row's
     source has zero pad rows)."""
     if name in PROBE_ROWS:
         return probe_row(name, device, check)
-    kernel, plan, shape, extra, _ = row_plan(name, dtype)
+    kernel, plan, shape, extra, _ = row_plan(name, dtype, default_tile)
     gen = torch.Generator(device=device).manual_seed(0)
     src = (torch.rand(shape, device=device, generator=gen)
            * 100.0).to(state_dtype(dtype))
@@ -195,18 +202,21 @@ def probe_row(name: str, device, check: bool = False) -> dict:
     return row
 
 
-def build_report(names, dtype: str) -> dict:
+def build_report(names, dtype: str, default_tile: bool = False) -> dict:
     """Build the rows' per-plan kernels together; per row the nvcc seconds
-    (None when found on disk), tile, shared memory, registers and spills.
-    Empty for the rows whose kernels this tree does not build per plan."""
+    (None when found on disk), tile, shared memory, registers and spills,
+    and the CTAs per SM where this tree models them.  Empty for the rows
+    whose kernels this tree does not build per plan."""
     names = [n for n in names if n not in PROBE_ROWS]
     if not hasattr(kernels, "build_plans"):
         return {}
-    requests = {n: row_plan(n, dtype)[4] for n in names}
+    requests = {n: row_plan(n, dtype, default_tile)[4] for n in names}
     names = [n for n in names if requests[n] is not None]
     plans = kernels.build_plans([requests[n] for n in names])
     return {n: {"seconds": p.build_seconds, "tile": list(p.geometry.tile),
-                "smem_bytes": p.geometry.smem_bytes, **p.ptxas()}
+                "smem_bytes": p.geometry.smem_bytes, **p.ptxas(),
+                **({"ctas_per_sm": p.ctas_per_sm()}
+                   if hasattr(p, "ctas_per_sm") else {})}
             for n, p in zip(names, plans)}
 
 
@@ -217,19 +227,21 @@ def main(argv=None) -> None:
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--default-tile", action="store_true",
+                    help="the winners at the generator's tile")
     args = ap.parse_args(argv)
     names = expand(args.rows)
     device = resolve_device(None)   # the card: raises where there is none
     t0 = time.perf_counter()
     kernels.build()
-    build = build_report(names, args.dtype)
+    build = build_report(names, args.dtype, args.default_tile)
     build_seconds = time.perf_counter() - t0
     with torch.cuda.device(device):
-        rows = {n: kernel_row(n, device, args.dtype, args.check)
-                for n in names}
+        rows = {n: kernel_row(n, device, args.dtype, args.check,
+                              args.default_tile) for n in names}
     print(json.dumps({
         "tag": args.tag, "card": torch.cuda.get_device_name(device),
-        "dtype": args.dtype,
+        "dtype": args.dtype, "default_tile": args.default_tile,
         **{key: {n: r[key] for n, r in rows.items() if key in r}
            for key in ("ms", "compute_only_ms", "sha256", "info")
            + (("rel_err",) if args.check else ())},

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from drstencil_tpu_torch.ir.passes import Analysis
-from drstencil_tpu_torch.ops import codegen, kernels
+from drstencil_tpu_torch.ops import kernels
 from drstencil_tpu_torch.ops import stream as stream_mod
 from drstencil_tpu_torch.ops.config import KernelConfig
 
@@ -119,7 +119,7 @@ def traffic_model(an: Analysis, cfg: KernelConfig) -> TrafficModel:
     H = plan.frame
     taps_per_cell = (plan.taps_per_step * an.step if kernels.is_factor(plan)
                      else len(plan.coeffs) * plan.levels)
-    read_cells = codegen.geometry(plan, dims).read_cells()
+    read_cells = kernels.geometry(plan, dims).read_cells()
     cells = int(np.prod(dims))
     interior = int(np.prod([d - 2 * H for d in dims]))
     return TrafficModel(

@@ -345,10 +345,11 @@ def test_every_plan_stages_ahead_and_prefetch_changes_nothing():
         assert order(codegen.cuda_source(plan3, spec3.dims, "float32", False),
                      "fetch_plane(", "// level 1", f"// level {plan3.levels}",
                      "stage_plane(")
-    # the space collapses the knob with the other TPU-only ones
+    # the space collapses the knob with the other TPU-only ones, and keeps
+    # tm: the segment
     rep = space.representative(KernelConfig(step=4, trapezoid=True,
                                             prefetch=1, tm=128), 2)
-    assert rep.prefetch == 2 and rep.tm is None
+    assert rep.prefetch == 2 and rep.tm == 128
     assert {c.cfg.prefetch for c in space.default_space(
         bench_spec("2d5pt_star", (64, 256)))} == {2}
 
@@ -534,6 +535,7 @@ class _FakeTensor:
 
     def __init__(self, shape, dtype, ptr):
         self.shape, self.dtype, self._ptr = torch.Size(shape), dtype, ptr
+        self.device = torch.device("cuda", 0)
 
     def data_ptr(self):
         return self._ptr

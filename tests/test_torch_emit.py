@@ -35,11 +35,12 @@ from drstencil_tpu_torch import convert, emit as emit_mod
 from drstencil_tpu_torch.ir import golden
 from drstencil_tpu_torch.ir.passes import AnalysisError, analyze, fuse
 from drstencil_tpu_torch.ir.spec import load_stc
+from drstencil_tpu_torch.ops import codegen
 from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.ops.runner import StencilProgram
 from drstencil_tpu_torch.ops.stream import level_plan
 from drstencil_tpu_torch.parallel import halo, stream_shard
-from drstencil_tpu_torch.tune.tuned import tuned_entries
+from drstencil_tpu_torch.tune.tuned import tpu_config, tuned_entries
 
 from conftest import BENCH_DIR, small_spec
 
@@ -92,7 +93,7 @@ CHECK_CASES = {
     "3d_step1": (TINY_3D, dict(step=1, tm=24)),
     "trapezoid": (TINY_2D, dict(step=2, tm=16, trapezoid=True)),
     "deep_trapezoid": ("M 96\nN 256\niterations 4\nstencil\n" + FIVE_PT,
-                       dict(step=6, tm=48, ch=8, trapezoid=True)),
+                       dict(step=6, tm=48, ch=16, trapezoid=True)),
     "block": (TINY_2D, dict(step=4, tm=16, trapezoid=True, block=2,
                             lane_mode="roll")),
     "block_vfuse": (TINY_2D, dict(step=4, tm=16, trapezoid=True, block=2,
@@ -176,7 +177,7 @@ LIBRARY_CASES = {
     "trapezoid_chained": ("2d25pt_box", (64, 256), dict(
         step=2, tm=16, ch=8, trapezoid=True, lane_mode="roll")),
     "deep_trapezoid": ("2d5pt_star", (96, 256), dict(
-        step=6, tm=48, ch=8, trapezoid=True)),
+        step=6, tm=48, ch=16, trapezoid=True)),
     "vfuse": ("2d5pt_star", (64, 256), dict(
         step=3, tm=16, trapezoid=True, vfuse=True, lane_mode="roll")),
     "block": ("2d5pt_star", (64, 256), dict(
@@ -335,10 +336,17 @@ def test_emitted_text_stands_alone():
     launch = cuda.split('extern "C" int launch(')[1].split(")")[0]
     assert launch == "const void* src, void* dst, void* stream"
     assert len(literals_of(cuda)) == 5
-    # the header records the TPU-only knobs, which change nothing else
-    assert "bx=16 ch=8 lane_mode=roll jfix=outer prefetch=1" in text
-    plain = emit_mod.emit(TINY_2D, "tiny", step=2, trapezoid=True, check=True)
+    # the header records the tile (a segment of 16 rows, strips of 8
+    # columns) and the TPU-only knobs, which change nothing else
+    assert "tile    : bx=16 ch=8 (0 = the generator's), segments sized " \
+        f"for {codegen.SM_COUNT} SMs" in text
+    assert "lane_mode=roll jfix=outer prefetch=1" in text
+    assert "constexpr int SEG = 16, TX = 8;" in cuda
+    plain = emit_mod.emit(TINY_2D, "tiny", step=2, trapezoid=True, check=True,
+                          tm=16, ch=8)
     assert cuda_source_of(plain).split("\n", 2)[2] == cuda.split("\n", 2)[2]
+    auto = emit_mod.emit(TINY_2D, "tiny", step=2, trapezoid=True, check=True)
+    assert "constexpr int SEG = 16, TX = 8;" not in cuda_source_of(auto)
 
 
 def test_shard_kernel_takes_a_store_range():
@@ -355,7 +363,7 @@ def winner_plans():
     and block-fused tables with many distinct coefficients."""
     for name, entry in sorted(tuned_entries().items()):
         spec = load_stc(os.path.join(BENCH_DIR, name + ".stc"))
-        cfg = KernelConfig.from_dict(entry["config"])
+        cfg = tpu_config(entry["config"])
         an = analyze(spec, cfg.step, cfg.distance, cfg.merge_forward)
         yield name, spec, cfg, level_plan(an, cfg)
     for name, fields in (("2d25pt_box", dict(step=3)),
