@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py --stencils 2d5pt_star,3d7pt_star
     python3 chip_smoke.py --from-phase 14      # phases 14-18 alone (partial)
     python3 chip_smoke.py --mesh-devices cuda:0,cuda:1,cuda:2,cuda:3
-                                  # four cards: phases 11 and 13 with one shard
-                                  # per card, and weak scaling measured
+                                  # four cards: phases 11, 12's sharded factor
+                                  # path and 13 with one shard per card, and
+                                  # weak scaling measured
 
 It builds the CUDA kernels from the sources in the checkout (nvcc, into
 ``build/``) and runs, raising on the first failure:
@@ -17,8 +18,9 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
    library of ``drstencil_tpu_torch/csrc`` (the overlap probe) and the
    per-plan kernels of every plan known ahead (``ops/codegen.py``'s text:
    every winner at the ``.stc`` and the reduced size in fp32 and bf16, the
-   shard slabs, factor mode's plans and its unfactored programs, and
-   ``tile2d_fused`` for every row of the plain-tile sweep), one ``nvcc``
+   shard slabs, factor mode's plans, their shard slabs and its unfactored
+   programs, the tables above 64 taps, and ``tile2d_fused`` for every row
+   of the plain-tile sweep), one ``nvcc``
    each, started together; seconds, registers, spills and CTAs per SM per
    plan;
 2. each per-plan kernel against its plain PyTorch version on every tuned
@@ -59,7 +61,10 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
     on a quarter slab of the ``.stc`` grid with its ghost rows, for the
     first, an interior and the last shard's store range and an empty one
     (fp32 <= 1e-5 relative, bf16 <= 1 ulp; everything outside the range
-    bit-unchanged; the empty range launches nothing);
+    bit-unchanged; the empty range launches nothing): the levels' builds on
+    ``SHARD_STENCILS``' winners, and factor mode's
+    (``stencil2d_factor_levels_shard``) on each of ``FACTOR_STENCILS`` x
+    ``FACTOR_STEPS``;
 11. the sharded main path — ``sharded_stream_pair(spec, best_config(name),
     make_mesh(4, devices=["cuda:0"] * 4))`` at the ``.stc`` size for every
     winner in fp32 and four of them in bf16: one pair against the
@@ -75,7 +80,15 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
     step as the yardstick, and the plan's registers, spills and CTAs per
     SM; then ``StencilProgram(spec, KernelConfig(step, factor=True))``:
     ``time()`` and ``device_check`` beside the unfactored trapezoid of the
-    same step;
+    same step; then the sharded factor main path, ``sharded_stream_pair(spec,
+    KernelConfig(step, factor=True), mesh)`` as in phase 11, for every
+    stencil and step in fp32 and bf16 (equal to the single-device factor
+    program cell for cell in fp32, within one ulp in bf16,
+    ``stencil2d_factor_levels_shard`` launched ``2 * N_SHARDS`` times per
+    pair); then the coefficient-fused single levels above 64 taps
+    (``BIG_TABLES``: 3d27pt_box at step 2, 125 taps; 2d25pt_box at step 3,
+    169) in fp32 at the ``.stc`` size against their plain version, with
+    their registers, spills and build seconds;
 13. ``dryrun_multichip(4, devices=["cuda:0"] * 4)``;
 14. emitted programs: ``python -m drstencil_tpu_torch.cli`` emits one
     standalone program per tuned winner at the ``.stc`` size in fp32, and
@@ -154,9 +167,13 @@ N_SHARDS = 4
 # phase 10: the stencils whose plans the shard kernels are held on; the
 # bf16 sharded main path runs the same four, so every row has launches
 SHARD_STENCILS = ("2d5pt_star", "2d25pt_box", "3d7pt_star", "3d27pt_box")
-# phase 12: factor mode's stencils and steps
+# phase 12: factor mode's stencils and steps (phases 10-12 run its shard
+# build on each, in both dtypes)
 FACTOR_STENCILS = ("2d25pt_box", "2d9pt_star", "2d9pt_cross")
 FACTOR_STEPS = (1, 2)
+# phase 12: coefficient-fused single levels above 64 taps, fp32 at the .stc
+# size (stencil, step): 5^3 = 125 taps, 13^2 = 169 taps
+BIG_TABLES = (("3d27pt_box", 2), ("2d25pt_box", 3))
 # phases 11-12: pairs per timing (3 repeats, after 1 warmup pair)
 PAIRS = 4
 # phase 9: the stencils swept (with the labels swept, {step} the prior's:
@@ -267,8 +284,9 @@ def main(argv=None) -> int:
                     help="comma-separated subset of benchmarks/tuned.json")
     ap.add_argument("--mesh-devices", default="",
                     help=f"{N_SHARDS} comma-separated CUDA devices: run only "
-                         "the multi-device phases (11 and 13) with the mesh "
-                         "on them, and measure weak scaling; the default "
+                         "the multi-device phases (11, the sharded factor "
+                         "path of 12, and 13) with the mesh on them, and "
+                         "measure weak scaling; the default "
                          f"mesh names cuda:0 {N_SHARDS} times")
     ap.add_argument("--from-phase", type=int, default=2, choices=[2, 10, 14],
                     help="skip the phases before this one (a partial run, "
@@ -359,18 +377,30 @@ def main(argv=None) -> int:
                     slab = (spec.dims[0] + 2 * plan.frame,) + rest
                     out.append((f"{name} weak-scaling slab",
                                 (plan, slab, dtype, True)))
-        for name in () if mesh_only else FACTOR_STENCILS:
+        for name in FACTOR_STENCILS:
             spec = specs.get(name) or load_stc(
                 os.path.join(bench, name + ".stc"))
             for step in FACTOR_STEPS:
                 for dtype in ("float32", "bfloat16"):
-                    for factor in (True, False):
+                    for factor in (True,) if mesh_only else (True, False):
                         cfg = KernelConfig(step=step, factor=factor,
                                            trapezoid=step > 1 and not factor,
                                            dtype=dtype)
+                        plan = level_plan(analyze(spec, step), cfg)
                         out.append((f"{name} {cfg.label()}", (
-                            level_plan(analyze(spec, step), cfg), spec.dims,
-                            dtype, False)))
+                            plan, spec.dims, dtype, False)))
+                        if factor:
+                            slab = (spec.dims[0] // N_SHARDS
+                                    + 2 * plan.frame,) + tuple(spec.dims[1:])
+                            out.append((f"{name} {cfg.label()} shard slab",
+                                        (plan, slab, dtype, True)))
+        for name, step in () if mesh_only else BIG_TABLES:
+            spec = specs.get(name) or load_stc(
+                os.path.join(bench, name + ".stc"))
+            cfg = KernelConfig(step=step)
+            out.append((f"{name} {cfg.label()} big table", (
+                level_plan(analyze(spec, step), cfg), spec.dims, "float32",
+                False)))
         for name, dims in () if mesh_only else GEOMETRY_CASES:
             spec, _, tiles = geometry_tiles(name, dims)
             for cfg, plan in tiles:
@@ -559,6 +589,43 @@ def main(argv=None) -> int:
         row["step"] = step
         return row
 
+    def factor_shard_kernel_row(name, step, dtype):
+        """The factor kernel's shard build on ``name`` at ``step`` on a
+        quarter slab of the .stc grid with its ghost rows, for an interior
+        shard's store range (timed; its last window's tail row lies past
+        the slab), the first shard's, the last's and an empty one; the
+        yardstick is :func:`factor_kernel_row`'s on the slab."""
+        spec = specs.get(name) or load_stc(os.path.join(bench, name + ".stc"))
+        cfg = KernelConfig(step=step, factor=True, dtype=dtype)
+        plan = level_plan(analyze(spec, step), cfg)
+        H, local = plan.frame, spec.dims[0] // N_SHARDS
+        slab = StencilSpec(spec.name, (local + 2 * H,) + tuple(spec.dims[1:]),
+                           spec.iterations, spec.taps)
+        taps = sorted(spec.taps.items())
+        row = compare(name, kernels.stencil2d_factor_levels_shard, plan,
+                      analyze(slab, step), cfg,
+                      ([o for o, _ in taps], [c for _, c in taps], 2), step,
+                      rows=(H, H + local),
+                      also_rows=((2 * H, H + local), (H, local),
+                                 (2 * H, 2 * H)))
+        row["step"] = step
+        return row
+
+    def big_table_row(name, step):
+        """A coefficient-fused single level above 64 taps (``BIG_TABLES``)
+        in fp32 at the .stc size against its plain version, with its
+        registers, spills and build seconds; its yardstick is one
+        convolution of the fused table."""
+        spec = specs.get(name) or load_stc(os.path.join(bench, name + ".stc"))
+        cfg = KernelConfig(step=step)
+        an = analyze(spec, step)
+        plan = level_plan(an, cfg)
+        row = compare(f"{name} {cfg.label()}", kernels.kernel_for(spec.ndim),
+                      plan, an, cfg, level_table(plan), plan.levels)
+        row["step"] = step
+        print("big table " + json.dumps(row))
+        return row
+
     def geometry_phase():
         """Phase 9, the tuner's tile axes: each ``GEOMETRY_CASES`` case at
         every tile of :func:`geometry_tiles` on one random fp32 state: the
@@ -643,16 +710,18 @@ def main(argv=None) -> int:
         timed pairs of an operator that grows the state may overflow)."""
         return bool(((x == y) | (x.isnan() & y.isnan())).all())
 
-    def sharded_main_path(name, dtype):
-        """``sharded_stream_pair`` on ``N_SHARDS`` shards (of one card, or
-        on ``--mesh-devices``) at the .stc size against the single-device
-        program from the same state: after one pair, and again after the
-        timed pairs, which both run alike."""
-        spec, cfg = specs[name], best_config(name).replace(dtype=dtype)
+    def sharded_main_path(name, cfg):
+        """``sharded_stream_pair`` of ``cfg`` on ``N_SHARDS`` shards (of one
+        card, or on ``--mesh-devices``) at the .stc size against the
+        single-device program of ``cfg`` from the same state: after one
+        pair, and again after the timed pairs, which both run alike."""
+        spec = specs.get(name) or load_stc(os.path.join(bench, name + ".stc"))
+        dtype = cfg.dtype
         prog = StencilProgram(spec, cfg)
         mesh = halo.make_mesh(N_SHARDS, devices=mesh_devices)
         spair, g = stream_shard.sharded_stream_pair(spec, cfg, mesh)
-        kernel = kernels.kernel_for(spec.ndim, shard=True)
+        kernel = (kernels.stencil2d_factor_levels_shard if cfg.factor
+                  else kernels.kernel_for(spec.ndim, shard=True))
         state = prog.init_state(0)
         gold, inset = prog.gold_a(state, 1)
         sa = stream_shard.shard_state(state["a"], g)
@@ -669,7 +738,7 @@ def main(argv=None) -> int:
         line = {"stencil": name, "cfg": cfg.label(), "dims": list(spec.dims),
                 "dtype": dtype, "shards": N_SHARDS,
                 "devices": [str(d) for d in mesh.devices],
-                "launches": launches}
+                "kernel": kernel.name, "launches": launches}
         if dtype == "float32":
             line["vs_single"] = relative_diff(sharded, single)
             same = line["vs_single"] <= SHARD_TOL
@@ -696,8 +765,8 @@ def main(argv=None) -> int:
                 and launches == 2 * N_SHARDS
                 and copies == 2 * model["copies_per_apply_mesh"]
                 and copied == 2 * model["bytes_per_apply_mesh"]):
-            raise RuntimeError(f"{name} {dtype}: sharded main path failed "
-                               f"(ghosts zero: {ghosts_zero}): {line}")
+            raise RuntimeError(f"{name} {cfg.label()}: sharded main path "
+                               f"failed (ghosts zero: {ghosts_zero}): {line}")
         del prog, sa, sb, state
         torch.cuda.empty_cache()
         return line
@@ -750,8 +819,9 @@ def main(argv=None) -> int:
         """Phase 11: every winner in fp32, ``shard_names`` in bf16, then the
         weak-scaling MODEL on this run's single-device times and copy
         time.  Returns the fp32 and the bf16 lines by stencil."""
-        fp32 = {n: sharded_main_path(n, "float32") for n in names}
-        bf16 = {n: sharded_main_path(n, "bfloat16") for n in shard_names}
+        fp32 = {n: sharded_main_path(n, best_config(n)) for n in names}
+        bf16 = {n: sharded_main_path(n, best_config(n).replace(
+            dtype="bfloat16")) for n in shard_names}
         copy_s = float(np.median([x["copy_us"] for x in fp32.values()])) / 1e6
         model_rows = winner_rows(
             N_SHARDS, latency_s=copy_s,
@@ -763,6 +833,16 @@ def main(argv=None) -> int:
         for m in report["weak_scaling_model"]:
             print("weak-scaling model (not measured) " + json.dumps(m))
         return fp32, bf16
+
+    def factor_sharded_phase():
+        """Phase 12's sharded factor main path: ``sharded_stream_pair`` of
+        ``KernelConfig(step, factor=True)`` for each of ``FACTOR_STENCILS``
+        x ``FACTOR_STEPS`` in fp32 and bf16, each against the single-device
+        factor program.  Returns the lines by (stencil, step, dtype)."""
+        return {(n, step, dt): sharded_main_path(n, KernelConfig(
+                    step=step, factor=True, dtype=dt))
+                for n in FACTOR_STENCILS for step in FACTOR_STEPS
+                for dt in ("float32", "bfloat16")}
 
     def dryrun_phase():
         """Phase 13: ``dryrun_multichip`` on the mesh's devices."""
@@ -795,9 +875,10 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
 
     def multi_device_only():
-        """``--mesh-devices``: phases 11 and 13 on several cards, and weak
-        scaling measured there."""
+        """``--mesh-devices``: phases 11, 12's sharded factor path and 13
+        on several cards, and weak scaling measured there."""
         fp32, _ = sharded_phase()
+        factor_sharded_phase()
         for name in names:
             weak_scaling(name, fp32[name]["single_ms_per_pair"])
         dryrun_phase()
@@ -1391,6 +1472,11 @@ def main(argv=None) -> int:
         # -- 10. the shard-local kernels against their plain version -------------
         shard_rows = {dt: {n: shard_kernel_row(n, dt) for n in shard_names}
                       for dt in ("float32", "bfloat16")}
+        factor_shard_rows = {(n, step, dt): factor_shard_kernel_row(n, step,
+                                                                    dt)
+                             for n in FACTOR_STENCILS
+                             for step in FACTOR_STEPS
+                             for dt in ("float32", "bfloat16")}
 
         # -- 11. the sharded main path at the .stc size ---------------------------
         for dt, lines in zip(shard_rows, sharded_phase()):
@@ -1405,6 +1491,11 @@ def main(argv=None) -> int:
                     row = factor_kernel_row(name, step, dt)
                     factor_main_path(name, step, dt, row)
                     factor_rows.append(row)
+        # its shard build on the sharded main path
+        for key, line in factor_sharded_phase().items():
+            factor_shard_rows[key]["launches"] = line["launches"]
+        # coefficient-fused tables above 64 taps
+        report["big_tables"] = [big_table_row(n, s) for n, s in BIG_TABLES]
 
         # -- 13. the multi-device dry run -------------------------------------------
         dryrun_phase()
@@ -1444,7 +1535,8 @@ def main(argv=None) -> int:
             "bound_by", "library_ms")
     all_rows = ([kernel_rows[k] for k in cases] + [bf16_rows[k] for k in cases]
                 + [shard_rows[dt][n] for dt in shard_rows for n in shard_names]
-                + factor_rows + emitted_rows + tile2d_rows + overlap_rows)
+                + factor_rows + list(factor_shard_rows.values())
+                + emitted_rows + tile2d_rows + overlap_rows)
     idle = [r["name"] for r in all_rows if r["launches"] <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on their path: {idle}")

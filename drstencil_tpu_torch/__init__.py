@@ -11,7 +11,7 @@ The same stencil-compiler framework, run on an NVIDIA Hopper GPU:
   :mod:`drstencil_tpu_torch.ops.kernels`: levels streamed along axis 0
   through shared-memory rings that never write a frame cell, for 2D and
   3D, with shard-local builds for the multi-device path and a factor-mode
-  build for 2D radius-2 operators;
+  build for 2D radius-2 operators (on a grid and on a shard's slab);
 - :mod:`drstencil_tpu_torch.ops.runner` runs the warmup, timed ping-pong
   and golden-check protocol on torch tensors;
 - :mod:`drstencil_tpu_torch.parallel` decomposes the grid over a mesh of

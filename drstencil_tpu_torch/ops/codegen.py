@@ -78,6 +78,11 @@ factor plan is always windowed and the levels R reads keep ``4 * reach +
 2`` rows in registers (their newest row is ``2 * reach + 1`` past R's
 output row when it is read); those levels, and the staged source, run one
 row past their range so that the windows shift on to the last output row.
+Its shard build (``stencil2d_factor_levels_shard``, the TPU kernel's
+``factor=True, row_frame=False``) is the same text with the store range:
+a segment is the same walk whichever row it starts on, and the row one past
+the last window lies outside the slab at the global edge and reads 0, as a
+row past ``M`` does; no stored cell reads it.
 
 ``tile2d_source`` writes ``tile2d_fused``, the kernel of the plain-tile
 experiment (the TPU kernel ``tuning/exp_tile2d.py:78-89``, K10), for one
@@ -584,8 +589,6 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
         raise ValueError(f"dtype {dtype!r}: the kernels take {DTYPES} state")
     g = geometry(plan, dims, sms)
     ndim, H, L, r = g.ndim, g.frame, g.levels, g.reach
-    if g.factor and shard:
-        raise EmitError("factor mode has no shard-local build")
     bf16 = dtype == "bfloat16"
     d3 = ndim == 3
     dim_names = ("D", "M", "N") if d3 else ("M", "N")
@@ -596,7 +599,7 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
         o.append(f"// {name} [{label}]: {L} levels alternating V1 ({n1} "
                  f"taps) and V2 ({n2}) + R ({nr}), frame {H},")
         o.append("// specialised to this plan.")
-        kind = "stencil2d_factor_levels"
+        kind = f"stencil2d_factor_levels{'_shard' if shard else ''}"
     else:
         o.append(f"// {name} [{label}]: {L} level(s) of {len(plan.coeffs)} "
                  f"taps, reach {r}, frame {H}, specialised to this plan.")

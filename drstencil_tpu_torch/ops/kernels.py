@@ -14,7 +14,10 @@ has a CUDA kernel here:
   in the mesh; the off-axis frame stays frozen;
 - ``stencil2d_factor_levels`` (``factor=True``): ``2 * step`` levels
   alternating the 3x3 tables V1 and V2 of ``ir/factor.py``, where every
-  V2 level adds the residual R read from the level two back.
+  V2 level adds the residual R read from the level two back;
+- ``stencil2d_factor_levels_shard`` (``factor=True, row_frame=False``):
+  those levels on a shard's slab, storing ``rows`` as the levels' shard
+  builds do.
 
 The kernels of the two kernel experiments (``tuning/exp_tile2d.py``,
 ``tuning/exp_overlap.py``) are fp32 only:
@@ -535,10 +538,11 @@ def stencil3d_levels_shard_ref(src, dst, taps: LevelTaps, rows):
     return _levels_ref(src, dst, taps, rows)
 
 
-def stencil2d_factor_levels_ref(src, dst, taps: FactorTaps):
+def stencil2d_factor_levels_ref(src, dst, taps: FactorTaps, rows=None):
     """Plain PyTorch version of ``stencil2d_factor_levels``: level t is V1
     of level t-1 for odd t, and V2 of level t-1 plus R of level t-2 (two
-    reaches wider on every side) for even t; fp32 levels, one rounding."""
+    reaches wider on every side) for even t; fp32 levels, one rounding.
+    ``rows`` is the stored range of axis 0 (default the interior)."""
     H, r = taps.frame, taps.reach
     prev = None
     cur = F.pad(src.to(torch.float32), (H,) * 4)
@@ -549,7 +553,14 @@ def stencil2d_factor_levels_ref(src, dst, taps: FactorTaps):
             nxt = (_valid_level(cur, taps.v2, r, r)
                    + _valid_level(prev, taps.r, 2 * r, 2 * r))
         prev, cur = cur, nxt
-    return _store(cur, dst, H)
+    return _store(cur, dst, H, rows)
+
+
+def stencil2d_factor_levels_shard_ref(src, dst, taps: FactorTaps, rows):
+    """Plain PyTorch version of ``stencil2d_factor_levels_shard``: the same
+    levels on a slab with ``frame`` ghost rows on each side of axis 0,
+    stored over ``rows``."""
+    return stencil2d_factor_levels_ref(src, dst, taps, rows)
 
 
 # -- the kernel experiments: plain versions ----------------------------------
@@ -970,11 +981,15 @@ stencil3d_levels_shard = LevelsKernel(
 stencil2d_factor_levels = FactorLevelsKernel(
     "stencil2d_factor_levels", 2, stencil2d_factor_levels_ref,
     "drstencil_tpu/ops/stream.py:683")
+stencil2d_factor_levels_shard = FactorLevelsKernel(
+    "stencil2d_factor_levels_shard", 2, stencil2d_factor_levels_shard_ref,
+    "drstencil_tpu/ops/stream.py:683", shard=True)
 tile2d_fused = Tile2dKernel()
 overlap_probe = OverlapProbeKernel()
 PLAN_KERNELS = (stencil2d_levels, stencil3d_levels, stencil2d_levels_shard,
                 stencil3d_levels_shard)
-KERNELS = PLAN_KERNELS + (stencil2d_factor_levels, tile2d_fused,
+KERNELS = PLAN_KERNELS + (stencil2d_factor_levels,
+                          stencil2d_factor_levels_shard, tile2d_fused,
                           overlap_probe)
 
 

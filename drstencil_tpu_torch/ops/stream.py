@@ -15,7 +15,8 @@ frozen frame of width ``H = an.halo`` on every axis:
 Here that becomes a level schedule (:func:`level_plan`) handed to one of
 the CUDA kernels of ``ops/kernels.py``, built per plan from specialised
 text (``ops/codegen.py``).  ``row_frame=False`` (K8) builds
-the shard-local function of the multi-device path on a ghosted slab.  The TPU geometry — tall layout,
+the shard-local function of the multi-device path on a ghosted slab, in
+factor mode too (``stencil2d_factor_levels_shard``).  The TPU geometry — tall layout,
 padding, strips, frame slabs — has no counterpart; only its rejection
 rules and the config checks are kept, so that both packages accept and
 reject the same configurations.
@@ -24,6 +25,7 @@ reject the same configurations.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -132,6 +134,15 @@ def _factor_table(tap_list):
             np.array([c for _, _, c in tap_list], dtype=np.float32))
 
 
+@functools.lru_cache(maxsize=64)
+def _factor_tables(taps: tuple):
+    """V1, V2 and R of the tap table ``taps`` (its sorted items) as
+    :func:`_factor_table`s, or None; the search runs once per table (about
+    a second), not once per shard of a mesh."""
+    fac = factor_tap_lists(dict(taps))
+    return None if fac is None else tuple(_factor_table(t) for t in fac)
+
+
 def factor_plan(an: Analysis) -> FactorTaps:
     """Factor mode's schedule (stream.py:459-474): ``2 * step`` levels of
     reach ``H / (2 * step)`` alternating V1 and V2, with the residual R on
@@ -140,15 +151,15 @@ def factor_plan(an: Analysis) -> FactorTaps:
         raise ValueError("factor mode is 2D-only")
     if an.step >= DEEP_LEVELS:
         raise ValueError("factor mode requires step < DEEP_LEVELS")
-    fac = factor_tap_lists(an.spec.taps)
-    if fac is None:
+    tables = _factor_tables(tuple(sorted(an.spec.taps.items())))
+    if tables is None:
         raise ValueError(
             "no well-conditioned radius-2 factorization for this table"
         )
     levels = 2 * an.step
     reach = an.halo // levels
     assert reach * levels == an.halo, "fused halo must be 2*step*factor reach"
-    v1, v2, r = (_factor_table(t) for t in fac)
+    v1, v2, r = tables
     return FactorTaps(v1=v1, v2=v2, r=r, levels=levels, reach=reach,
                       frame=an.halo)
 
@@ -234,9 +245,8 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
     dtype = state_dtype(cfg.dtype)
     dims = tuple(an.spec.dims)
     if kernels.is_factor(plan):
-        if not row_frame:
-            raise ValueError("factor mode has no shard-local build")
-        kernel = kernels.stencil2d_factor_levels
+        kernel = (kernels.stencil2d_factor_levels if row_frame
+                  else kernels.stencil2d_factor_levels_shard)
     else:
         kernel = kernels.kernel_for(len(dims), shard=not row_frame)
     if not row_frame:

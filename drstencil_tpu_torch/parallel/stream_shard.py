@@ -11,8 +11,9 @@ each side of axis 0, and every application
    edges are never written and stay zero, which is what the single-device
    kernel reads outside the domain;
 2. runs the shard-local kernel (``build_stream_kernel(..., row_frame=
-   False)``, ``stencil{2,3}d_levels_shard``) on every shard: interior
-   shards store all their rows, computed from the received ghost rows;
+   False)``: ``stencil{2,3}d_levels_shard``, or in factor mode
+   ``stencil2d_factor_levels_shard``) on every shard: interior shards
+   store all their rows, computed from the received ghost rows;
 3. leaves the global Dirichlet row frame frozen: the two edge shards are
    given a store range that stops ``H`` rows short of the global edge.
 

@@ -84,10 +84,13 @@ def session_trace(bench_dir: str, out_dir: str, name: str, log=print,
                   device=None) -> Optional[str]:
     """One profiler trace of ``name``'s best config (two timed pairs) into
     ``out_dir/trace``; returns the directory, or None where the trace
-    failed (soft: tracing never kills a session)."""
+    failed, an empty trace of the card included (soft: tracing never kills
+    a session)."""
     from drstencil_tpu_torch.ops.runner import StencilProgram
     from drstencil_tpu_torch.tune import tuned as tuned_mod
-    from drstencil_tpu_torch.utils.profiling import maybe_trace
+    from drstencil_tpu_torch.utils.profiling import (TRACE_ERROR,
+                                                     maybe_trace,
+                                                     trace_failed)
 
     trace_dir = os.path.join(out_dir, "trace")
     try:
@@ -98,9 +101,11 @@ def session_trace(bench_dir: str, out_dir: str, name: str, log=print,
     except Exception as e:  # soft: tracing must never kill a session
         log(f"session trace skipped: {str(e)[:200]}")
         return None
-    if active:
+    if active and not trace_failed(trace_dir):
         log(f"profiler trace written to {trace_dir}")
         return trace_dir
+    if active:
+        log(f"session trace failed: see {trace_dir}/{TRACE_ERROR}")
     return None
 
 

@@ -2,8 +2,9 @@
 port of ``tuning/capture_trace.py``.
 
 Writes ``build/trace/<subdir>/`` (``trace.json``, ``kernels.txt``, or
-``trace_error.txt`` with the failing traceback) and prints a one-line
-verdict, then ``utils/trace_summary``'s table of the card's timeline, then
+``trace_error.txt`` with the failing traceback, or with the note that a
+trace asked for the card's activity holds none) and prints a one-line
+verdict (a failed trace exits 1), then ``utils/trace_summary``'s table of the card's timeline, then
 as its last line one JSON object: the config's label, the trace directory,
 the kernel launches the wrappers counted in the traced window, the
 table's rows and ``trace_summary.busy_share``.  The traced window is
@@ -30,7 +31,8 @@ from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.ops.runner import StencilProgram
 from drstencil_tpu_torch.tune.tuned import BENCH_DIR, best_config
 from drstencil_tpu_torch.utils import trace_summary
-from drstencil_tpu_torch.utils.profiling import maybe_trace
+from drstencil_tpu_torch.utils.profiling import (TRACE_ERROR, maybe_trace,
+                                                 trace_failed)
 
 TRACE_ROOT = os.path.join(kernels.BUILD_DIR, "trace")
 # the traced window: warmup pairs, timed pairs, repeats of StencilProgram.time
@@ -59,7 +61,7 @@ def capture(name: str | None = None, sub: str = "trace") -> dict:
         "artifacts": sorted(
             p for p in glob.glob(os.path.join(trace_dir, "**"),
                                  recursive=True)
-            if os.path.isfile(p) and not p.endswith("trace_error.txt")),
+            if os.path.isfile(p) and not p.endswith(TRACE_ERROR)),
         "label": f"{spec.name}:{cfg.label()}",
         "launches": sum(k.launches for k in kernels.KERNELS),
     }
@@ -73,18 +75,19 @@ def main(argv=None) -> int:
         print(f"tracing {name} winner: {best_config(name).label()}")
     got = capture(name, sub)
     trace_dir = got["trace_dir"]
-    if got["active"] and got["artifacts"]:
+    failed = trace_failed(trace_dir)
+    if got["active"] and got["artifacts"] and not failed:
         print(f"trace: OK — {len(got['artifacts'])} artifact(s) under "
               f"{trace_dir}; {got['launches']} kernel launches counted in "
               "the traced window")
         for p in got["artifacts"]:
             print("  ", os.path.relpath(p), os.path.getsize(p), "bytes")
-    elif got["active"]:
+    elif got["active"] and not failed:
         print(f"trace: profiler context entered but produced NO artifacts "
               f"under {trace_dir}")
         return 1
     else:
-        err = os.path.join(trace_dir, "trace_error.txt")
+        err = os.path.join(trace_dir, TRACE_ERROR)
         tail = (open(err).read().splitlines()[-1] if os.path.exists(err)
                 else "?")
         print(f"trace: FAILED — {tail} (full traceback in {err})")

@@ -3,7 +3,8 @@
 - :func:`maybe_trace` wraps a region in ``torch.profiler`` (CPU and CUDA
   activity) and writes a Chrome trace and a per-kernel table.  A failure
   is soft, as in the JAX package: tracing never kills a session, and the
-  error is written to ``<trace_dir>/trace_error.txt``.
+  error is written to ``<trace_dir>/trace_error.txt``.  A trace that asked
+  for the card's activity and holds none of it is such a failure too.
 - :func:`traffic_model` gives one application's bytes and operations for
   the kernel that runs (``ops/codegen.Geometry``: columns, segments and
   their warm-up planes): what the kernel
@@ -14,6 +15,7 @@
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import traceback
 from dataclasses import dataclass
@@ -24,15 +26,34 @@ from drstencil_tpu_torch.ir.passes import Analysis
 from drstencil_tpu_torch.ops import kernels
 from drstencil_tpu_torch.ops import stream as stream_mod
 from drstencil_tpu_torch.ops.config import KernelConfig
+from drstencil_tpu_torch.utils import trace_summary
+
+# the file maybe_trace writes when a trace failed
+TRACE_ERROR = "trace_error.txt"
 
 
-def _record_error(trace_dir: str) -> None:
+def _record_error(trace_dir: str, text: str | None = None) -> None:
+    """Write ``text`` (default: the exception being handled) to
+    ``<trace_dir>/trace_error.txt``."""
     try:
         os.makedirs(trace_dir, exist_ok=True)
-        with open(os.path.join(trace_dir, "trace_error.txt"), "w") as f:
-            f.write(traceback.format_exc())
+        with open(os.path.join(trace_dir, TRACE_ERROR), "w") as f:
+            f.write(traceback.format_exc() if text is None else text)
     except OSError:
         pass
+
+
+def trace_failed(trace_dir: str) -> bool:
+    """Whether :func:`maybe_trace` recorded a failure in ``trace_dir``."""
+    return os.path.exists(os.path.join(trace_dir, TRACE_ERROR))
+
+
+def _device_events(path: str) -> int:
+    """The card's events (``trace_summary.is_device_event``) in the Chrome
+    trace at ``path``."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(1 for e in events if trace_summary.is_device_event(e))
 
 
 @contextlib.contextmanager
@@ -41,7 +62,9 @@ def maybe_trace(trace_dir: str | None):
     yields whether a trace is being taken.  On exit it writes
     ``trace.json`` (Chrome trace) and ``kernels.txt`` (``key_averages``)
     to ``trace_dir``.  Errors of the profiler are soft and recorded in
-    ``trace_error.txt``; errors of the body propagate."""
+    ``trace_error.txt``, and so is a trace taken with CUDA activity that
+    holds no device event (:func:`trace_failed` tells callers); errors of
+    the body propagate."""
     if not trace_dir:
         yield False
         return
@@ -64,9 +87,16 @@ def maybe_trace(trace_dir: str | None):
         try:
             prof.__exit__(None, None, None)
             os.makedirs(trace_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            trace = os.path.join(trace_dir, "trace.json")
+            prof.export_chrome_trace(trace)
             with open(os.path.join(trace_dir, "kernels.txt"), "w") as f:
                 f.write(prof.key_averages().table(row_limit=30))
+            if (ProfilerActivity.CUDA in activities
+                    and not _device_events(trace)):
+                _record_error(trace_dir, (
+                    "the profiler was asked for CUDA activity, but "
+                    f"{trace} holds no device event (kernel, gpu_memcpy, "
+                    "gpu_memset): the card's timeline was not recorded\n"))
         except Exception:  # soft: writing the trace must not kill a run
             _record_error(trace_dir)
 

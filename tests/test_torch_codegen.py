@@ -601,7 +601,7 @@ def test_every_levels_factor_and_tile2d_kernel_comes_from_codegen():
         "drstencil_tpu_torch/ops/codegen.py": [
             "stencil2d_levels", "stencil3d_levels", "stencil2d_levels_shard",
             "stencil3d_levels_shard", "stencil2d_factor_levels",
-            "tile2d_fused"],
+            "stencil2d_factor_levels_shard", "tile2d_fused"],
         "drstencil_tpu_torch/csrc/experiments.cu": ["overlap_probe"]}
     for k in kernels.KERNELS:
         assert (k.library is None) == k.source.endswith("codegen.py")

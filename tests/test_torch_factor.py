@@ -194,10 +194,21 @@ def test_factor_rejections_match_jax(name, kw, match):
 
 
 def test_factor_has_no_shard_local_build():
-    an = tpasses.analyze(port_spec(small_spec("2d25pt_box")), 2)
-    with pytest.raises(ValueError, match="no shard-local build"):
-        tstream.build_stream_kernel(an, KernelConfig(step=2, factor=True),
+    """(Named when the shard-local build was refused.)  Factor mode's
+    shard-local build is ``stencil2d_factor_levels_shard``: it takes a
+    slab with ghost rows and a store range, and its plain version stores
+    that range only."""
+    spec = port_spec(small_spec("2d25pt_box", (16, 256)))
+    an = tpasses.analyze(spec, 2)
+    f = tstream.build_stream_kernel(an, KernelConfig(step=2, factor=True),
                                     device="cpu", row_frame=False)
+    src = torch.rand((16 + 8, 256))
+    dst = torch.zeros_like(src)
+    f(src, dst, (8, 20))
+    assert dst[8:20, 4:-4].all() and not dst[:8].any() and not dst[20:].any()
+    with pytest.raises(ValueError, match="FactorTaps"):
+        kernels.stencil2d_factor_levels_shard(
+            src, dst, tstream.level_plan(an, KernelConfig(step=2)), (8, 20))
 
 
 def test_factor_counts_three_buffers_and_its_own_flops():

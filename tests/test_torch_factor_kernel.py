@@ -117,8 +117,16 @@ def test_factor_plans_key_and_refuse_a_shard_build():
     assert kernels.plan_key(plan, dims, torch.float32) \
         == kernels.plan_key(plan, dims, "float32")
     assert kernels.plan_of(plan, dims, "float32", False).geometry.factor
-    with pytest.raises(codegen.EmitError, match="no shard-local build"):
-        codegen.cuda_source(plan, dims, "float32", True)
+    # the shard build: its own key and the store range
+    slab = (dims[0] // 4 + 2 * plan.frame, dims[1])
+    assert kernels.plan_key(plan, slab, "float32", True) \
+        != kernels.plan_key(plan, slab, "float32", False)
+    shard = codegen.cuda_source(plan, slab, "float32", True)
+    assert "// stencil2d_factor_levels_shard: " in shard
+    assert ('extern "C" int launch(const void* src, void* dst, int s_lo, '
+            "int s_hi, void* stream)") in shard
+    assert "stencil2d_factor_levels_shard" not in codegen.cuda_source(
+        plan, slab, "float32", False)
     # steps 3 and 4: windows beyond WINDOW_REGS, so two CTAs per SM
     _, _, deep = factor_plan("2d25pt_box", 3)
     assert codegen.window_regs(deep) > codegen.WINDOW_REGS

@@ -6,8 +6,9 @@ plan key, the tuner's space, the CLI and the emitter, and the SM count.
   wrote before the knobs existed: ``torch_geometry_manifest.json`` holds
   the SHA-256 of those texts (at ``codegen.SM_COUNT``) for every winner of
   ``benchmarks/tuned.json`` and of the card's first winners table in both
-  dtypes, full grid and shard slab, factor mode's plans and
-  ``tile2d_fused``'s, with the configs they were made from.
+  dtypes, full grid and shard slab, factor mode's plans (full grid and
+  shard slab) and ``tile2d_fused``'s, with the configs they were made
+  from.
 - Texts of other tiles compile under the ``g++`` emulation
   (``tests/cuda_emulation``, as in ``test_torch_codegen.py``) and give the
   default tile's output bit for bit: every cell runs the same sorted
@@ -115,7 +116,11 @@ def test_manifest_covers_both_tables_dtypes_and_builds():
             for dtype in codegen.DTYPES:
                 assert f"{table} {name} {dtype}" in keys
                 assert f"{table} {name} {dtype} shard" in keys
-    assert sum(k.startswith("factor") for k in keys) == 12
+    # factor mode: three tables x steps 1, 2 x both dtypes, on the full
+    # grid and on a quarter slab (the shard build)
+    factor = [k for k in keys if k.startswith("factor")]
+    assert len(factor) == 24
+    assert sum(k.endswith(" shard") for k in factor) == 12
     assert sum(k.startswith("tile2d") for k in keys) == sum(
         len(v) for v in SWEEP.values())
 
