@@ -41,6 +41,7 @@ flags; a later process finds the library on disk; about 6 s per plan).
 :func:`build_plans` compiles many plans at once, one ``nvcc`` each, all
 started together; callers that know their plans ahead use it.  A failed
 build raises with the compiler's log; nothing falls back.
+:func:`plan_counters` counts the plan cache's disk hits, builds and seconds.
 
 Each streaming kernel runs on float32 and on bfloat16 state: the bf16
 build loads as fp32, computes every level in fp32 and rounds once at the
@@ -56,6 +57,7 @@ kernel or raise.  Each wrapper's ``launches`` counts its kernel's launches
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -314,7 +316,8 @@ class PlanKernel:
         self.text = text
         self.geometry = geometry
         self.shard = shard
-        stem = os.path.join(PLAN_DIR, "plan_" + codegen.source_hash(text))
+        self.stem = "plan_" + codegen.source_hash(text)
+        stem = os.path.join(PLAN_DIR, self.stem)
         self.path, self.source, self.log_path = (stem + ".so", stem + ".cu",
                                                  stem + ".log")
         self.build_log = ""
@@ -337,14 +340,18 @@ class PlanKernel:
         with open(self.log_path, "w") as f:
             f.write(self.build_log)
         self.build_seconds = time.perf_counter() - t0
+        _COUNTERS.add(builds=1)
 
     def load(self) -> "PlanKernel":
         if self._lib is None:
             if not self.built:
                 self.compile()
-            elif not self.build_log and os.path.exists(self.log_path):
-                with open(self.log_path) as f:
-                    self.build_log = f.read()
+            else:
+                if self.build_seconds is None:  # not built by this object
+                    _COUNTERS.add(disk_hits=1)
+                if not self.build_log and os.path.exists(self.log_path):
+                    with open(self.log_path) as f:
+                        self.build_log = f.read()
             lib = ctypes.CDLL(self.path)
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.launch.argtypes = ([ptr, ptr] + [i32] * (2 * self.shard)
@@ -384,6 +391,65 @@ class PlanKernel:
         return {"registers": max(map(int, regs)),
                 "spill_bytes": max(int(a) + int(b) for a, b in spills)
                 if spills else 0}
+
+
+class _PlanCounters:
+    """The plan cache's counters (:func:`plan_counters`), safe across the
+    threads of :func:`build_plans`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._depth = 0     # plan_kernel / build_plans calls under way
+        self._t0 = 0.0
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = {"disk_hits": 0, "builds": 0, "plan_s": 0.0}
+
+    def add(self, **by) -> None:
+        with self._lock:
+            for key, value in by.items():
+                self._counts[key] += value
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self._counts)
+
+    @contextlib.contextmanager
+    def timed(self):
+        """Add the wall seconds of the outermost timed call to ``plan_s``
+        (a context, or a decorator): calls nested in it or overlapping it
+        in another thread add only the time during which none was under
+        way."""
+        with self._lock:
+            if self._depth == 0:
+                self._t0 = time.perf_counter()
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    self._counts["plan_s"] += time.perf_counter() - self._t0
+
+
+_COUNTERS = _PlanCounters()
+
+
+def plan_counters() -> dict:
+    """A copy of the plan cache's counters since the process started (or
+    :func:`reset_plan_counters`): ``disk_hits``, libraries found in
+    ``build/plans``; ``builds``, compiles (text written, ``nvcc``, log);
+    ``plan_s``, wall seconds inside :func:`plan_kernel` and
+    :func:`build_plans` (text, hash, ``nvcc``, ``dlopen``), each second
+    counted once."""
+    return _COUNTERS.snapshot()
+
+
+def reset_plan_counters() -> None:
+    _COUNTERS.reset()
 
 
 _PLANS: dict = {}
@@ -437,6 +503,7 @@ def tile2d_plan(taps: "Tile2dTaps", shape, tm: int,
         codegen.tile2d_geometry(taps, rows, cols, tm, sms), False))
 
 
+@_COUNTERS.timed()
 def plan_kernel(taps, dims, dtype, shard: bool = False,
                 sms: Optional[int] = None) -> PlanKernel:
     """The loaded kernel of ``taps`` on a grid (a ghosted slab with
@@ -446,6 +513,7 @@ def plan_kernel(taps, dims, dtype, shard: bool = False,
     return plan_of(taps, dims, dtype, shard, sms).load()
 
 
+@_COUNTERS.timed()
 def build_plans(requests) -> list:
     """Build and load the kernels of many plans, each request a
     :class:`PlanKernel` (e.g. :func:`tile2d_plan`'s) or a ``(taps, dims,

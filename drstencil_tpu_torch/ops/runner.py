@@ -21,6 +21,7 @@ from drstencil_tpu_torch.ir.spec import StencilSpec
 from drstencil_tpu_torch.ops import stream as stream_mod
 from drstencil_tpu_torch.ops import xla_ref
 from drstencil_tpu_torch.ops.config import KernelConfig
+from drstencil_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -98,10 +99,13 @@ class StencilProgram:
         return torch.from_numpy(x).to(self.dtype)
 
     def run_pairs(self, state, pairs: int):
+        """``pairs`` ping-pong pairs on ``state`` in place, under the span
+        ``drstencil.run_pairs``, the parent of their applications' spans."""
         pair = self.pair_fn()
         a, b = state["a"], state["b"]
-        for _ in range(pairs):
-            pair(a, b)
+        with span("drstencil.run_pairs"):
+            for _ in range(pairs):
+                pair(a, b)
         return dict(state)
 
     def final_a(self, state) -> np.ndarray:

@@ -35,6 +35,7 @@ from drstencil_tpu_torch.ir.passes import Analysis, fuse
 from drstencil_tpu_torch.ops import kernels
 from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.ops.kernels import FactorTaps, LevelTaps
+from drstencil_tpu_torch.utils.profiling import span
 
 # trapezoid depth the JAX package compiles as a fori_loop; kept for
 # vfuse's rejection rule and device_check's deep gold
@@ -239,6 +240,10 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
     failed build raises now.  On every device the plan's geometry is
     checked here, so that a segment or column the kernel would refuse
     (``codegen.geometry``) is refused on the CPU too.
+
+    Each call of ``f`` is the span ``drstencil.apply <kernel> <plan>``
+    (:func:`utils.profiling.span`): ``<plan>`` is the stem of the plan's
+    library (``plan_<hash16>``), or ``plain`` on the CPU.
     """
     device = resolve_device(device)
     plan = level_plan(an, cfg)
@@ -253,18 +258,24 @@ def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
         dims = (dims[0] + 2 * plan.frame,) + dims[1:]
     sms = kernels.sm_count(device)
     kernels.geometry(plan, dims, sms)
+    library = "plain"
     if device.type == "cuda":
-        kernels.plan_kernel(plan, dims, dtype, not row_frame, sms)
+        library = kernels.plan_kernel(plan, dims, dtype, not row_frame,
+                                      sms).stem
+    # the span's name, built once: its gpu_user_annotation names the plan
+    # of each kernel in the card's rows of a trace
+    name = f"drstencil.apply {kernel.name} {library}"
 
     def f(src: torch.Tensor, dst: torch.Tensor, *rows) -> torch.Tensor:
-        if src.device != device or dst.device != device:
-            raise ValueError(f"tensors on {src.device}/{dst.device}, "
-                             f"kernel built for {device}")
-        if tuple(src.shape) != dims:
-            raise ValueError(f"grid {tuple(src.shape)} is not {dims}")
-        if src.dtype != dtype or dst.dtype != dtype:
-            raise TypeError(f"tensors of {src.dtype}/{dst.dtype}, kernel "
-                            f"built for {dtype}")
-        return kernel(src, dst, plan, *rows)
+        with span(name):
+            if src.device != device or dst.device != device:
+                raise ValueError(f"tensors on {src.device}/{dst.device}, "
+                                 f"kernel built for {device}")
+            if tuple(src.shape) != dims:
+                raise ValueError(f"grid {tuple(src.shape)} is not {dims}")
+            if src.dtype != dtype or dst.dtype != dtype:
+                raise TypeError(f"tensors of {src.dtype}/{dst.dtype}, "
+                                f"kernel built for {dtype}")
+            return kernel(src, dst, plan, *rows)
 
     return f

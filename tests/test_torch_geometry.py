@@ -269,6 +269,7 @@ def test_the_library_builds_for_the_cards_sm_count(fake_card, monkeypatch):
 
     def fake_plan_kernel(taps, dims, dtype, shard=False, sms=None):
         asked.append((tuple(dims), shard, sms))
+        return kernels.plan_of(taps, dims, dtype, shard, sms)  # not built
 
     monkeypatch.setattr(kernels, "plan_kernel", fake_plan_kernel)
     spec = bench_spec("2d5pt_star", (64, 256))
