@@ -27,10 +27,11 @@ Design (:class:`Geometry` holds the numbers):
   of ``SEG`` planes (rows in 2D) of axis 0, and walks the planes in a
   loop; the TPU kernel's sequential grid becomes that loop.  Level ``t``
   lags level ``t - 1`` by ``reach + 1`` planes and keeps only a ring of
-  ``2 * reach + 2`` planes in shared memory, so the halo is recomputed in
-  y and x only; along axis 0 a segment pays ``2 * H`` warm-up planes.
-  One ring slot more than the window lets all levels of a step run
-  between two barriers: one ``__syncthreads`` per plane, not per level.
+  planes in shared memory (``2 * reach + 2``; fewer in 3D with register
+  windows, below), so the halo is recomputed in y and x only; along axis 0
+  a segment pays ``2 * H`` warm-up planes.  One ring slot more than the
+  planes read lets all levels of a step run between two barriers: one
+  ``__syncthreads`` per plane, not per level.
 - *Register-blocked.*  A thread computes four adjacent outputs along x
   (a quad) at a time.  The text knows the taps: per tap row (one offset
   on the other axes) it loads the aligned ``float4`` blocks that cover
@@ -42,15 +43,31 @@ Design (:class:`Geometry` holds the numbers):
   table in ``ops/stream.tap_table``'s sorted order from ``acc = 0`` —
   the arithmetic of the table-driven kernels this text replaced, cell
   for cell.
-- *Register windows (2D).*  A 2D strip gives every thread one quad column
+- *Register windows.*  A 2D strip gives every thread one quad column
   for all rows and levels.  Where ``levels * (2 * reach + 1)`` quads fit
   ``WINDOW_REGS`` registers the thread also carries its own cells' last
   ``2 * reach + 1`` rows of every level in registers (the levels then run
   last to first within a step, so that level ``t`` reads level ``t - 1``'s
   window before it moves on), and only the cells beside its quad come from
   the rings: a 5-point star's level costs 2 shared loads per four cells.
-  Deep or wide plans (2d25pt_box: 120 registers) and 3D plans (several
-  quads per thread) keep to the rings.
+  A 3D thread owns one quad of the staged plane, the same on every plane
+  and at every level (where a level's region is smaller, the threads
+  outside it skip), and keeps its window of the source and of every level
+  but the last.  The taps on its own row read the window; the cells beside
+  its quad come from the neighbouring lanes' windows by warp shuffles
+  (from shared memory at a warp's two ends); only the rows above and below
+  are shared loads: a 7-point star's level costs two ``float4`` loads per
+  four cells.  Each level then writes to its ring not its newest plane but
+  the one the level above reads newest a step later, so a ring keeps only
+  the planes at the axis-0 offsets of the taps that leave the thread's
+  quad column, and the one being written: two planes for a star table,
+  whose column then widens (3d7pt_star ``fu4``: 32 x 64 where the rings
+  took 16 x 64).  A 3D plan is windowed where that frees ring planes (a
+  star, not a box or a cross, whose taps off the column span the whole
+  reach: there the windows would cost registers and free nothing) and its
+  windows, ``4 * levels * window_len`` registers, fit ``WINDOW_REGS``; all
+  of it is read from the tap table.  Deep or wide plans (2d25pt_box: 120
+  registers; 3d13pt_star at step 5) keep to the rings.
 - *Loads.*  Planes start on a multiple of four columns, so the source is
   read and the result written as 16-byte quads (8 bytes of bf16) with
   the domain's edge decided per quad; a grid whose width is not a
@@ -121,9 +138,15 @@ STRIP_2D = (512, 256, 128, 64, 32, 16, 8)
 COLUMNS_3D = ((32, 64), (24, 64), (16, 64), (12, 64), (8, 64), (8, 32),
               (4, 32), (4, 16), (2, 16), (2, 8), (1, 8), (1, 4))
 THREADS_3D = 256
-# 2D: a thread keeps its own cells' window of every level in registers
-# where that takes at most this many of them
+# a thread keeps its own cells' window of every level in registers where
+# that takes at most this many of them
 WINDOW_REGS = 96
+# 3D with register windows: threads of a CTA at most (one quad each), and
+# the registers a thread holds beside its windows: a CTA's must fit the
+# 64K register file, and how many do decides the CTAs an SM holds
+THREADS_3D_WINDOW = 1024
+REGS_BESIDE_WINDOWS = 40
+REGISTER_FILE = 65536
 # 2D with register windows: rows requested ahead of their use by cp.async:
 # a strip's row is 2 KB, and an SM needs tens of KB in flight to keep device
 # memory busy
@@ -172,11 +195,18 @@ class Geometry:
     (strip) it walks.  A staged plane is ``ey x ex`` fp32 cells: the column
     with ``frame`` halo rows on each side of y (``ey = 1`` in 2D) and
     ``hx`` halo columns (the frame rounded up to whole quads) on each side
-    of x.  Each of the ``levels`` levels keeps a ring of ``ring`` planes.
-    With ``window`` (2D plans whose windows fit ``WINDOW_REGS``) a thread
-    owns one quad column of the strip and also carries its own cells' last
-    ``2 * reach + 1`` rows of every level in registers, so that only taps
-    that reach into a neighbour's columns read the rings.  ``ahead`` > 0
+    of x.  Each of the ``levels`` levels keeps a ring of ``ring`` planes:
+    ``2 * reach + 2`` without register windows.
+    With ``window`` (plans whose windows fit ``WINDOW_REGS``) a thread owns
+    the same quad of every plane (row in 2D) at every level, and also
+    carries its last ``window_len`` planes of the source and of every level
+    below the last in registers, so that only taps that reach into a
+    neighbour's cells read the rings.  A 2D thread keeps ``2 * reach + 1``
+    rows, in rings of ``2 * reach + 2``.  Each 3D level writes to its ring
+    the plane of its window that the level above reads newest a step later
+    (offset ``dhi``), so that a ring keeps only the planes at the offsets
+    ``[dlo, dhi]`` of the taps that leave the column, and the plane being
+    written (``_window_3d``).  ``ahead`` > 0
     (windowed plans with 16-byte access) is the number
     of source rows requested ahead by ``cp.async`` into ``ahead + 1``
     staging rows; 0 stages through registers.  A ``factor`` plan (2D,
@@ -198,18 +228,34 @@ class Geometry:
     window: bool = False
     ahead: int = 0
     factor: bool = False
+    wlen: int = 0
+    dhi: int = 0
 
     @property
     def ndim(self) -> int:
         return len(self.dims)
 
     @property
+    def window3d(self) -> bool:
+        return self.window and self.ndim == 3
+
+    @property
     def window_len(self) -> int:
         """Rows of each level a windowed thread keeps: the ``2 * reach +
         1`` a level reads of the one below; a factor plan's V2 level also
         reads R's ``4 * reach + 1`` rows of the level two below, whose
-        newest row is then one step ahead of them."""
+        newest row is then one step ahead of them.  A 3D thread keeps
+        ``wlen`` planes (``_window_3d``)."""
+        if self.window3d:
+            return self.wlen
         return 4 * self.reach + 2 if self.factor else 2 * self.reach + 1
+
+    @property
+    def window_write(self) -> int:
+        """3D: the window entry a level writes to its ring after its push:
+        the plane at offset ``dhi`` from the level above's output plane of
+        the next step."""
+        return self.wlen - 1 - self.reach + self.dhi
 
     @property
     def tail(self) -> int:
@@ -336,6 +382,33 @@ def window_regs(plan) -> int:
     return QUAD * L * (2 * r + 1)
 
 
+def _window_3d(plan, ey: int, ex: int):
+    """``(threads, wlen, ring, dhi)`` of a 3D column whose staged plane is
+    ``ey x ex`` with register windows, or None.  A thread owns one quad, so
+    the plane's quads must not exceed ``THREADS_3D_WINDOW``.  The taps on
+    the thread's own row read its window, so a window reaches back to the
+    oldest plane they read, or to the plane the level writes to its ring
+    where that is older; the windows of all levels but the last must fit
+    ``WINDOW_REGS``, and a CTA's registers the register file.  A ring keeps
+    the planes at the axis-0 offsets ``[dlo, dhi]`` of the taps that leave
+    the thread's quad column, and the plane being written: the windows
+    engage only where that is fewer than the ``2 * reach + 2`` of the ring
+    text (a star table, not a box), since they pay for their registers
+    with the wider column the freed shared memory admits."""
+    r, L = int(plan.reach), int(plan.levels)
+    offsets = np.asarray(plan.offsets).tolist()
+    leave = [d0 for d0, dy, dx in offsets if (dy, dx) != (0, 0)] or [0]
+    dlo, dhi = min(leave), max(leave)
+    threads = _ceil_to(ey * ex // QUAD, 32)
+    wlen = r + 1 - min([d0 for d0, dy, _ in offsets if dy == 0] + [dhi])
+    regs = QUAD * L * wlen
+    if (threads > THREADS_3D_WINDOW or dhi - dlo + 2 >= 2 * r + 2
+            or regs > WINDOW_REGS
+            or threads * (regs + REGS_BESIDE_WINDOWS) > REGISTER_FILE):
+        return None
+    return threads, wlen, dhi - dlo + 2, dhi
+
+
 def _column_entries(dims, frame: int):
     """(nominal column, x width, staged plane (ey, ex) cut to the grid) of
     every ``STRIP_2D`` strip (2D) or ``COLUMNS_3D`` column (3D), widest
@@ -404,7 +477,21 @@ def geometry(plan, dims, sms: int = SM_COUNT, segment=None,
                     * ey * ex)
 
     entries = _column_entries(dims, H)
-    if column is None:
+    # 3D: register windows where a column's fit (_window_3d), the widest
+    # first; the column the rings fit otherwise
+    win3 = None
+    if ndim == 3:
+        named = [e for e in entries if column is None or e[0] == column]
+        if column is not None and named:
+            named = [max(named, key=lambda e: e[1])]
+        for _, _, (ey3, ex3) in named:
+            w = _window_3d(plan, ey3, ex3)
+            if w and 4 * (2 * guard + L * w[2] * ey3 * ex3) <= SMEM_LIMIT:
+                win3 = (ey3, ex3) + w
+                break
+    if win3:
+        ey, ex, threads, wlen, ring, dhi = win3
+    elif column is None:
         shapes = [e[2] for e in entries]
         fits = ([s for s in shapes if smem(*s) <= SMEM_TARGET]
                 or [s for s in shapes if smem(*s) <= SMEM_LIMIT])
@@ -426,21 +513,30 @@ def geometry(plan, dims, sms: int = SM_COUNT, segment=None,
                 f"shared memory, more than {SMEM_LIMIT}")
     column = (ex - 2 * hx,) if ndim == 2 else (ey - 2 * H, ex - 2 * hx)
     quads = ey * ex // QUAD
-    threads = min(_ceil_to(quads, 32),
-                  THREADS_3D if ndim == 3 else STRIP_2D[0] // QUAD)
+    if not win3:
+        wlen, dhi = 0, 0
+        threads = min(_ceil_to(quads, 32),
+                      THREADS_3D if ndim == 3 else STRIP_2D[0] // QUAD)
     g = Geometry(dims=dims, frame=H, reach=r, levels=L, tile=(1,) + column,
                  hx=hx, ey=ey, ex=ex, ring=ring, threads=threads,
-                 min_blocks=1, vec=vec, ahead=ahead, window=window,
-                 factor=factor)
+                 min_blocks=1, vec=vec, ahead=ahead,
+                 window=window or bool(win3), factor=factor, wlen=wlen,
+                 dhi=dhi)
     assert not window or quads <= threads
-    min_blocks = min(g.ctas_per_sm,
-                     2 if ndim == 3 or (factor and not in_regs) else 4)
+    if win3:
+        # registers, not shared memory, decide how many CTAs an SM holds
+        min_blocks = max(1, min(g.ctas_per_sm, REGISTER_FILE // (threads * (
+            QUAD * L * wlen + REGS_BESIDE_WINDOWS))))
+    else:
+        min_blocks = min(g.ctas_per_sm,
+                         2 if ndim == 3 or (factor and not in_regs) else 4)
     if segment is None:
         # a factor plan's registers, not its shared memory, decide how many
         # of its CTAs an SM holds (at step 1 shared memory would admit six,
         # its 88 registers five): its segments fill the ones the launch
-        # bound promises
-        slots = int(sms) * (min_blocks if factor else g.ctas_per_sm)
+        # bound promises; so do a windowed 3D plan's
+        slots = int(sms) * (min_blocks if factor or win3
+                            else g.ctas_per_sm)
         seg = _segment(g.interior, g.n_columns, g.warmup, slots)
     else:
         seg = _asked_segment(int(segment), g.interior, g.warmup)
@@ -480,12 +576,46 @@ def _plane_name(d0: int) -> str:
     return f"b_{'m' if d0 < 0 else 'p'}{abs(d0)}"
 
 
+def _beside_name(d0: int, j: int) -> str:
+    return (f"x_{'m' if d0 < 0 else 'p'}{abs(d0)}_"
+            f"{'m' if j < 0 else 'p'}{abs(j)}")
+
+
+def _own_row_3d(rid: str, base: str, d0: int, dxs, own: str, beside):
+    """Loads of a windowed 3D thread's own row at axis-0 offset ``d0``: its
+    quad ``own`` from its window, and each cell ``j`` beside it from the
+    window of the lane ``j // 4`` quads away by a warp shuffle done before
+    the call (``_kernel_text_3d``), named ``x_<d0>_<j>`` and appended to
+    ``beside`` as (name, d0, component, lanes away); a lane whose neighbour
+    lies in another warp loads the cell from shared memory instead.  A quad
+    at a row's start or end takes a neighbour of another row there, for
+    cells within ``reach`` of the staged plane's edge, which no kept cell
+    reads.  Returns (lines, {relative x: expression})."""
+    need = sorted({j + dx for dx in dxs for j in range(QUAD)})
+    expr = {j: f"{own}." + "xyzw"[j] for j in range(QUAD)}
+    lines = []
+    for j in need:
+        if j in expr:
+            continue
+        m = j // QUAD
+        name = _beside_name(d0, j)
+        beside.append((name, d0, "xyzw"[j - QUAD * m], m))
+        far = f"lane < {-m}" if m < 0 else f"lane >= {32 - m}"
+        tag = f"{rid}_{'m' if j < 0 else 'p'}{abs(j)}"
+        lines.append(f"  const float s{tag} = {far} ? {base}[at + ({j})] : "
+                     f"{name};")
+        expr[j] = f"s{tag}"
+    return lines, expr
+
+
 def _taps_text(offsets, coeffs, g: Geometry, own_base: int, acc: str = "a",
-               window: str = "w", tag: str = ""):
+               window: str = "w", tag: str = "", beside=None):
     """``fmaf`` lines of one tap table at the quad ``at``, one per tap and
     output cell into ``acc0..acc3``, in table order; with register windows
     the thread's own quad of axis-0 offset ``d0`` is ``window[d0 +
-    own_base]``.  Returns (lines, axis-0 offsets of the planes read from
+    own_base]`` (in 3D on the thread's own row, whose cells beside the quad
+    come from its neighbours' windows: ``_own_row_3d``, which appends them
+    to ``beside``).  Returns (lines, axis-0 offsets of the planes read from
     shared memory)."""
     rows = []       # taps grouped by everything but dx, in table order
     for off, c in zip(offsets.tolist(), coeffs.tolist()):
@@ -497,8 +627,13 @@ def _taps_text(offsets, coeffs, g: Geometry, own_base: int, acc: str = "a",
     for rid, (key, taps) in enumerate(rows):
         off = key[1] * g.ex if len(key) == 2 else 0
         own = f"{window}[{key[0] + own_base}]" if g.window else None
-        lines, expr = _row_loads(f"{tag}{rid}", _plane_name(key[0]), off,
-                                 [dx for dx, _, _ in taps], own)
+        dxs = [dx for dx, _, _ in taps]
+        if g.window3d and key[1] == 0:
+            lines, expr = _own_row_3d(f"{tag}{rid}", _plane_name(key[0]),
+                                      key[0], dxs, own, beside)
+        else:
+            lines, expr = _row_loads(f"{tag}{rid}", _plane_name(key[0]),
+                                     off, dxs, None if g.window3d else own)
         if lines:
             planes.add(key[0])
         body += lines
@@ -510,10 +645,11 @@ def _taps_text(offsets, coeffs, g: Geometry, own_base: int, acc: str = "a",
     return body, planes
 
 
-def _quad_fn(name: str, comment, windows, planes, body):
+def _quad_fn(name: str, comment, windows, planes, body, scalars=()):
     """A ``__device__`` function of the quad ``at`` up to its return:
     ``comment``, the signature, ``a0..a3`` from 0, then ``body``."""
     args = [f"const float4 (&{w})[WINDOW]" for w in windows]
+    args += [f"const float {x}" for x in scalars]
     args += [f"const float* __restrict__ {_plane_name(d)}" for d in planes]
     return comment + [
         f"__device__ __forceinline__ float4 {name}("
@@ -525,20 +661,32 @@ def _quad_fn(name: str, comment, windows, planes, body):
 def _level_quad(plan, g: Geometry):
     """Text of ``level_quad``: one level at the quad ``at`` — the table in
     sorted order, one ``fmaf`` per tap and output cell.  Returns (lines,
-    axis-0 offsets of the planes it reads from shared memory)."""
-    body, planes = _taps_text(plan.offsets, plan.coeffs, g, g.reach)
+    axis-0 offsets of the planes it reads from shared memory, the shuffled
+    cells it takes as ``(name, d0, component, lanes away)``)."""
+    beside = []
+    body, planes = _taps_text(plan.offsets, plan.coeffs, g,
+                              g.window_len - 1 - g.reach, beside=beside)
     planes = sorted(planes)
     o = ["// One level at the quad `at` of a plane: the tap table in sorted "
          "order, one fmaf",
          "// per tap and output cell; b_m1, b_p0, ... are the planes at "
          "axis-0 offsets -1, 0, ..."]
-    if g.window:
+    if g.window3d:
+        o.append(f"// in shared memory, w[k] the thread's own quad at offset "
+                 f"k - {g.window_len - 1 - g.reach}, in registers, and "
+                 "x_<d0>_<j> its row's")
+        o.append("// cell j at offset d0, from the window of the lane beside "
+                 "(shared memory where")
+        o.append("// that lane is in another warp)")
+        body = ["  const int lane = (int)threadIdx.x & 31;"] + body
+    elif g.window:
         o.append("// in shared memory, w[k] the thread's own quad at offset "
                  "k - REACH, in registers")
-    o = _quad_fn("level_quad", o, ["w"] if g.window else [], planes, body)
+    o = _quad_fn("level_quad", o, ["w"] if g.window else [], planes, body,
+                 [b[0] for b in beside])
     o.append("  return make_float4(a0, a1, a2, a3);")
     o.append("}")
-    return o, planes
+    return o, planes, beside
 
 
 def _factor_quads(plan, g: Geometry):
@@ -627,14 +775,29 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
     o.append(f"constexpr int EY = {g.ey}, EX = {g.ex}, QX = EX / 4;"
              "  // a staged plane")
     o.append("constexpr int PLANE = EY * EX, PLANE_QUADS = EY * QX;")
-    o.append(f"constexpr int RING = {g.ring};  // planes a level keeps: "
-             "2 * REACH + 2")
+    if g.window3d:
+        o.append(f"constexpr int RING = {g.ring};  // planes a level keeps: "
+                 "those its taps off the column read,")
+        o.append("                        // and the one being written")
+    else:
+        o.append(f"constexpr int RING = {g.ring};  // planes a level keeps: "
+                 "2 * REACH + 2")
     o.append(f"constexpr int GUARD = {g.guard};")
     o.append(f"constexpr int THREADS = {g.threads}, MIN_BLOCKS = "
              f"{g.min_blocks};")
     o.append("constexpr int STAGE = (PLANE_QUADS + THREADS - 1) / THREADS;"
              "  // quads a thread stages per plane")
-    if g.window:
+    if g.window3d:
+        o.append("// a thread owns quad threadIdx.x of every plane and keeps "
+                 "the source's and each")
+        o.append("// level's last WINDOW planes of it in registers")
+        o.append(f"constexpr int WINDOW = {g.window_len};")
+        o.append("// the window entry a level writes to its ring: the plane "
+                 "the level above reads")
+        o.append("// newest a step later")
+        o.append(f"constexpr int WRITE = {g.window_write};")
+        o.append("static_assert(STAGE == 1, \"one quad per thread\");")
+    elif g.window:
         o.append("// a thread owns quad threadIdx.x of every row and keeps "
                  "each level's last WINDOW")
         o.append("// rows of it in registers")
@@ -690,6 +853,7 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
         o.append("  }")
         o.append("}")
         o.append("")
+    if not g.ahead and not g.window3d:
         o.append("// Stage the requested plane into a ring slot as fp32.")
         o.append("__device__ __forceinline__ void stage_plane("
                  "float* __restrict__ plane,")
@@ -757,14 +921,17 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
                 return "level_v1", [f"w[{t - 1}]"], by_parity[1]
             return "level_v2r", [f"w[{t - 1}]", f"w[{t - 2}]"], by_parity[0]
     else:
-        quad_text, planes = _level_quad(plan, g)
+        quad_text, planes, beside = _level_quad(plan, g)
 
         def level_call(t):
             return ("level_quad", [f"w[{t - 1}]"] if g.window else [],
                     planes)
     o += quad_text
     o.append("")
-    o += _kernel_text(g, shard, level_call)
+    if g.window3d:
+        o += _kernel_text_3d(g, shard, planes, beside)
+    else:
+        o += _kernel_text(g, shard, level_call)
     o.append("")
     o.append('extern "C" const char* error_string(int err) {')
     o.append("  return cudaGetErrorString((cudaError_t)err);")
@@ -1054,6 +1221,116 @@ def _kernel_text(g: Geometry, shard: bool, level_call):
         o += [f"        w[0][{k}] = w[0][{k + 1}];" for k in range(wl - 1)]
         o.append(f"        w[0][{wl - 1}] = {own};")
         o.append("      }")
+    o.append("    }")
+    o.append("    __syncthreads();")
+    o.append("  }")
+    o.append("}")
+    return o
+
+
+def _kernel_text_3d(g: Geometry, shard: bool, planes, beside):
+    """The kernel of a windowed 3D plan: ``level_quad`` reads the planes at
+    the axis-0 offsets ``planes`` from shared memory and takes the cells
+    ``beside`` (``_own_row_3d``) as arguments."""
+    H, L, r = g.frame, g.levels, g.reach
+    wl = g.window_len
+    base = wl - 1 - r
+    rng = ", int s_lo, int s_hi" if shard else ""
+    lo0, hi0 = ("s_lo", "s_hi") if shard else ("H", "D - H")
+    # the ring slot of the plane a level writes is (its output plane + woff)
+    # % RING: that plane is REACH - dhi planes older, and woff >= 0
+    woff = g.ring * r - r + g.dhi
+
+    def push(t, value, pad):
+        return ([f"{pad}w[{t}][{i}] = w[{t}][{i + 1}];" for i in range(wl - 1)]
+                + [f"{pad}w[{t}][{wl - 1}] = {value};"])
+
+    o = ["__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)",
+         "stencil_kernel(const T* __restrict__ src, T* __restrict__ dst"
+         f"{rng}) {{",
+         "  extern __shared__ float4 smem4[];",
+         "  float* const smem = reinterpret_cast<float*>(smem4) + GUARD;",
+         f"  // this CTA's segment [a0, a1) of the store range [{lo0}, {hi0}):"
+         " uniform over the block",
+         f"  const int a0 = {lo0} + (int)blockIdx.z * SEG;",
+         f"  const int a1 = a0 + SEG < {hi0} ? a0 + SEG : {hi0};",
+         "  if (a0 >= a1) return;",
+         "  const int n0 = a1 - a0;",
+         "  // global coordinates of the plane's local (0, 0)",
+         "  const int y0 = (int)blockIdx.y * TY - H;",
+         "  const int x0 = (int)blockIdx.x * TX - HX;",
+         "  Raw st[STAGE];",
+         "  // this thread's quad of every plane: quad q of row `row`; a "
+         "thread past the plane's",
+         "  // quads owns none",
+         "  const int i = threadIdx.x, row = i / QX, q = i - row * QX;",
+         "  // w[t][k]: the thread's quad of level t (0: the source) in the "
+         "k-th of its last WINDOW",
+         "  // planes",
+         "  float4 w[LEVELS][WINDOW];",
+         "#pragma unroll",
+         "  for (int t = 0; t < LEVELS; ++t)",
+         "#pragma unroll",
+         "    for (int k = 0; k < WINDOW; ++k)",
+         "      w[t][k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);",
+         "  // step s stages source plane s of the window [a0 - H, a1 + H); "
+         "level t then",
+         "  // computes its plane s - t * (REACH + 1) from planes of earlier "
+         "steps, the levels last",
+         "  // to first, so that each reads the window of the level below "
+         "before that moves on",
+         "  for (int s = 0; s < n0 + 2 * H + LEVELS; ++s) {",
+         "    const bool feed = s < n0 + 2 * H;",
+         "    // request the plane now, stage it after the levels: its "
+         "latency hides",
+         "    if (feed) fetch_plane(src, a0 - H + s, y0, x0, st);"]
+    for t in range(L, 0, -1):
+        y_first, rows, q_first, qw = g.level_region(t)
+        o.append(f"    {{  // level {t} of {L}: rows [{y_first}, "
+                 f"{y_first + rows}) x quads [{q_first}, {q_first + qw})")
+        o.append(f"      const int p = s - {t * (r + 1)};")
+        o.append(f"      if (p >= {t * r} && p < n0 + {2 * H - t * r}) {{")
+        if planes:
+            o.append(f"        const float* const in = smem + {t - 1} * "
+                     "RING * PLANE;")
+        for d0 in planes:
+            o.append(f"        const float* const {_plane_name(d0)} = in + "
+                     f"((p + {d0 + g.ring}) % RING) * PLANE;")
+        if beside:
+            o.append("        // the cells beside the thread's quad in its "
+                     "own row, from the lanes")
+            o.append("        // beside it: every lane shuffles")
+        for name, d0, c, m in beside:
+            o.append(f"        const float {name} = __shfl_"
+                     f"{'up' if m < 0 else 'down'}_sync(0xffffffffu, "
+                     f"w[{t - 1}][{d0 + base}].{c}, {abs(m)});")
+        if t < L:
+            o.append("        // the plane the level above reads newest a "
+                     "step later")
+            o.append(f"        float* const out = smem + ({t} * RING + "
+                     f"(p + {woff}) % RING) * PLANE;")
+        else:
+            o.append("        const int g0 = a0 - H + p;  // in [a0, a1)")
+        # `do ... while (0)` gives the store's `continue` somewhere to go
+        o.append(f"        if (row >= {y_first} && row < {y_first + rows} "
+                 f"&& q >= {q_first} && q < {q_first + qw}) do {{")
+        o.append("          const float4 v = level_quad(" + ", ".join(
+            [f"w[{t - 1}]"] + [b[0] for b in beside]
+            + [_plane_name(d) for d in planes] + ["4 * i"]) + ");")
+        if t < L:
+            o += push(t, "v", "          ")
+            o.append("          *reinterpret_cast<float4*>(out + 4 * i) = "
+                     f"w[{t}][WRITE];")
+        else:
+            o += _store_lines(g, 0, "          ")
+        o.append("        } while (0);")
+        o.append("      }")
+        o.append("    }")
+    o.append("    if (feed && i < PLANE_QUADS) {")
+    o += push(0, "raw_to_f32(st[0])", "      ")
+    o.append(f"      *reinterpret_cast<float4*>(smem + ((s + {woff}) % RING) "
+             "* PLANE + 4 * i) =")
+    o.append("          w[0][WRITE];")
     o.append("    }")
     o.append("    __syncthreads();")
     o.append("  }")

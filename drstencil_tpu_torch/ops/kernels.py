@@ -41,7 +41,8 @@ flags; a later process finds the library on disk; about 6 s per plan).
 :func:`build_plans` compiles many plans at once, one ``nvcc`` each, all
 started together; callers that know their plans ahead use it.  A failed
 build raises with the compiler's log; nothing falls back.
-:func:`plan_counters` counts the plan cache's disk hits, builds and seconds.
+:func:`plan_counters` counts the plan cache's disk hits, builds and seconds,
+and the plans it made or found that keep register windows.
 
 Each streaming kernel runs on float32 and on bfloat16 state: the bf16
 build loads as fp32, computes every level in fp32 and rounds once at the
@@ -194,9 +195,9 @@ def tile_shape(taps, dims, sms: Optional[int] = None) -> Tuple[int, ...]:
 
 
 def n_buffers(taps, dims) -> int:
-    """fp32 planes (rows in 2D) one CTA keeps in shared memory: a ring of
-    ``2 * reach + 2`` per level, plus the staging rows of a plan that
-    copies ahead."""
+    """fp32 planes (rows in 2D) one CTA keeps in shared memory: a ring per
+    level (``codegen.Geometry.ring`` planes), plus the staging rows of a
+    plan that copies ahead."""
     return geometry(taps, dims).window_planes
 
 
@@ -352,6 +353,8 @@ class PlanKernel:
                 if not self.build_log and os.path.exists(self.log_path):
                     with open(self.log_path) as f:
                         self.build_log = f.read()
+            if getattr(self.geometry, "window", False):
+                _COUNTERS.add(**{f"windowed_{self.geometry.ndim}d": 1})
             lib = ctypes.CDLL(self.path)
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.launch.argtypes = ([ptr, ptr] + [i32] * (2 * self.shard)
@@ -405,7 +408,8 @@ class _PlanCounters:
 
     def reset(self) -> None:
         with self._lock:
-            self._counts = {"disk_hits": 0, "builds": 0, "plan_s": 0.0}
+            self._counts = {"disk_hits": 0, "builds": 0, "plan_s": 0.0,
+                            "windowed_2d": 0, "windowed_3d": 0}
 
     def add(self, **by) -> None:
         with self._lock:
@@ -444,7 +448,9 @@ def plan_counters() -> dict:
     ``build/plans``; ``builds``, compiles (text written, ``nvcc``, log);
     ``plan_s``, wall seconds inside :func:`plan_kernel` and
     :func:`build_plans` (text, hash, ``nvcc``, ``dlopen``), each second
-    counted once."""
+    counted once; ``windowed_2d`` and ``windowed_3d``, the plans of those
+    builds and disk hits whose geometry keeps register windows
+    (``codegen.Geometry.window``)."""
     return _COUNTERS.snapshot()
 
 

@@ -6,6 +6,7 @@
 #include <cstdint>
 #include <cstring>
 #include <limits>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -25,6 +26,20 @@ struct dim3 { unsigned x, y, z; dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned 
 static thread_local dim3 threadIdx, blockIdx, gridDim, blockDim;
 static thread_local std::barrier<>* g_bar;
 static inline void __syncthreads() { g_bar->arrive_and_wait(); }
+// warp shuffles: every lane of the warp posts its value, then reads its source lane's
+// (a lane whose source lies outside the warp keeps its own value, as on the card)
+static thread_local std::barrier<>* g_warp_bar;
+static thread_local float* g_lanes;
+static inline float emu_shfl(float v, int delta) {
+  const int t = (int)threadIdx.x, lane = t % 32, from = lane + delta;
+  g_lanes[t] = v;
+  g_warp_bar->arrive_and_wait();
+  const float got = (from >= 0 && from < 32) ? g_lanes[t + delta] : v;
+  g_warp_bar->arrive_and_wait();
+  return got;
+}
+static inline float __shfl_up_sync(unsigned, float v, unsigned d) { return emu_shfl(v, -(int)d); }
+static inline float __shfl_down_sync(unsigned, float v, unsigned d) { return emu_shfl(v, (int)d); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -41,11 +56,15 @@ template <class F> static void emu_launch(dim3 grid, dim3 block, F f) {
   for (unsigned bz = 0; bz < grid.z; ++bz) for (unsigned by = 0; by < grid.y; ++by) for (unsigned bx = 0; bx < grid.x; ++bx) {
     for (auto& v : g_smem) v = std::numeric_limits<float>::quiet_NaN();
     std::barrier<> bar(n);
+    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    for (unsigned w = 0; w < n; w += 32) warps.emplace_back(new std::barrier<>(std::min(32u, n - w)));
+    std::vector<float> lanes(n);
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < n; ++t) ts.emplace_back([&, t] {
       threadIdx = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
       blockIdx = dim3(bx, by, bz); gridDim = grid; blockDim = block; g_bar = &bar;
-      struct Drop { std::barrier<>* b; ~Drop() { b->arrive_and_drop(); } } drop{&bar};
+      g_warp_bar = warps[t / 32].get(); g_lanes = lanes.data();
+      struct Drop { std::barrier<>* b; std::barrier<>* w; ~Drop() { b->arrive_and_drop(); w->arrive_and_drop(); } } drop{&bar, g_warp_bar};
       f();
     });
     for (auto& t : ts) t.join();

@@ -134,8 +134,15 @@ def check_text(cuda, plan, dims, dtype, shard):
                                                  plan.reach)
     tile = (c["SEG"],) + tuple(c[n] for n in ("TY", "TX")[-(len(dims) - 1):])
     assert tile == g.tile == kernels.tile_shape(plan, dims)
+    # a ring per level: 2 * reach + 2 planes; with 3D register windows the
+    # planes at the axis-0 offsets of the taps that leave the column, and
+    # the one being written
+    leave = [o[0] for o in plan.offsets.tolist() if any(o[1:])]
+    shallow = max(leave) - min(leave) + 2
+    ring = (shallow if g.window and len(dims) == 3
+            else 2 * plan.reach + 2)
     assert (c["HX"], c["EY"], c["EX"], c["RING"], c["GUARD"]) == (
-        g.hx, g.ey, g.ex, 2 * plan.reach + 2, g.guard)
+        g.hx, g.ey, g.ex, ring, g.guard)
     assert (c["THREADS"], c["MIN_BLOCKS"]) == (g.threads, g.min_blocks)
     assert "PREFETCH" not in c      # the staging depth is no constant to set
     assert c["SMEM_BYTES"] == g.smem_bytes == kernels.smem_bytes(plan, dims)
@@ -143,9 +150,12 @@ def check_text(cuda, plan, dims, dtype, shard):
                                    * g.ey * g.ex)
     # a ring per level; windowed 2D plans add their staging rows
     staging = kernels.n_buffers(plan, dims) - plan.levels * c["RING"]
-    assert g.window == (len(dims) == 2 and plan.levels * (2 * plan.reach + 1)
-                        * 4 <= codegen.WINDOW_REGS)
-    if g.window and g.vec:
+    # 2D: windowed where the windows fit; 3D: where they fit and free ring
+    # planes
+    assert g.window == (plan.levels * (2 * plan.reach + 1) * 4
+                        <= codegen.WINDOW_REGS and (
+                            len(dims) == 2 or shallow < 2 * plan.reach + 2))
+    if g.window and g.vec and len(dims) == 2:
         assert staging == c["AHEAD"] + 1 == codegen.AHEAD_2D + 1
         assert "__pipeline_memcpy_async" in cuda and "fetch_plane" not in cuda
     else:
@@ -338,13 +348,19 @@ def test_every_plan_stages_ahead_and_prefetch_changes_nothing():
     assert order(odd, "fetch_plane(", "// level 4", "// level 1",
                  "stage_plane(", "w[0][2] = raw_to_f32(st[0]);")
     # the others (3D; deep 2D plans) request into registers before the
-    # levels and stage after them
-    for name in ("3d7pt_star", "2d25pt_box"):
+    # levels and stage after them; a windowed 3D plan (a star table) runs
+    # its levels last to first
+    for name in ("3d27pt_box", "2d25pt_box"):
         spec3, _, an3, plan3 = plan_of(name)
         assert not codegen.geometry(plan3, spec3.dims).window
         assert order(codegen.cuda_source(plan3, spec3.dims, "float32", False),
                      "fetch_plane(", "// level 1", f"// level {plan3.levels}",
                      "stage_plane(")
+    spec3, _, an3, plan3 = plan_of("3d7pt_star")
+    assert codegen.geometry(plan3, spec3.dims).window
+    assert order(codegen.cuda_source(plan3, spec3.dims, "float32", False),
+                 "fetch_plane(", f"// level {plan3.levels}", "// level 1",
+                 "w[0][2] = raw_to_f32(st[0]);", "__syncthreads();")
     # the space collapses the knob with the other TPU-only ones, and keeps
     # tm: the segment
     rep = space.representative(KernelConfig(step=4, trapezoid=True,
