@@ -1,7 +1,8 @@
 """Finds a cell and everything it names, by name, in files of their own.
 
 - ``workloads/<cell>.json``: the limit of each number the cell's
-  correctness check compares;
+  correctness check compares and, for a cell on more than one card, the
+  ``box`` its cone check compares (``cones``);
 - ``configs/<config>.json``: the configuration, beside its frozen `.stc`;
 - ``traffic/<mix>.json``: the mix's parameters, which name a loop in
   ``drivers/<driver>.py``;
@@ -11,7 +12,8 @@
   and chips, and which metrics it reports, with their units.
 
 A later cell, mix, loop or metric is added as files and entries; nothing
-here names one.
+here names one. A cell's ``chips`` picks its bench: ``harness.Solve`` on
+one card, ``sharded.ShardedSolve`` on more.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import json
 import os
 import re
 from dataclasses import dataclass
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 _NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
@@ -67,6 +70,7 @@ class Cell:
     chips: int
     end_to_end: list
     per_layer: list
+    box: Optional[list] = None
 
     def driver(self):
         return load_module(self.root, "drivers", self.traffic["driver"])
@@ -86,9 +90,10 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     if entry is None:
         raise ValueError(f"BENCHMARK.json has no cell named {name!r}")
     config = load_json(root, "configs", entry["config"])
+    check = load_json(root, "workloads", name)
     return Cell(name=name, root=root, config=config,
                 stc_path=os.path.join(root, "configs", config["stc"]),
                 traffic=load_json(root, "traffic", entry["traffic"]),
-                limits=load_json(root, "workloads", name)["limits"],
-                chips=entry["chips"],
-                end_to_end=bench["end_to_end"], per_layer=bench["per_layer"])
+                limits=check["limits"], chips=entry["chips"],
+                end_to_end=bench["end_to_end"], per_layer=bench["per_layer"],
+                box=check.get("box"))

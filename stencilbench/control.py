@@ -24,14 +24,13 @@ from stencilbench import cells, harness
 
 def readings(cell, seeds, dtype, device):
     """``(seed, max_rel_err, reference seconds)`` of one request per seed."""
-    bench = harness.Solve(cell, device, dtype)
+    bench = harness.bench_for(cell, device, dtype)
     driver = cell.driver()
     for seed in seeds:
         bench.load(seed)
         driver.run(bench, cell.traffic, requests=1)
         t0 = time.perf_counter()
-        errors = harness.check(cell, seed, bench.step, bench.pairs,
-                               bench.answers(), bench.device)
+        errors = bench.check(bench.answers())
         yield seed, max(errors.values()), time.perf_counter() - t0
     bench.release()
 

@@ -7,7 +7,9 @@ frozen `.stc` loaded by ``ir.spec.load_stc``, the port's winner
 ``ops.runner.StencilProgram``, which builds or finds the plan's kernel in
 ``build/plans`` inside the checkout. A request resets ``a`` from the
 field, solves with ``run_pairs`` and, in a mix with ``readback``, returns
-the result to host memory with ``final_a``.
+the result to host memory with ``final_a``. A cell on more than one card
+runs the port's sharded main path instead (``sharded.ShardedSolve``), with
+the same interface.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from drstencil_tpu_torch.tune.tuned import best_config
 
 from stencilbench import reference, trace
 from stencilbench.cells import Cell
-from stencilbench.work import (Work, card_peaks, make_field,
+from stencilbench.sharded import ShardedSolve
+from stencilbench.work import (Work, card_peaks, field_of,
                                pairs_per_request, work_of)
 
 CHECKED = "max_rel_err"
@@ -49,6 +52,7 @@ class Solve:
             dtype=dtype or cell.config["dtype"])
         self.prog = StencilProgram(spec, self.cfg, device=device)
         self.device = self.prog.device
+        self.devices = (self.device,)
         self.step = self.prog.an.step
         self.pairs = pairs_per_request(cell.traffic["timesteps"], self.step)
         shape = tuple(spec.dims)
@@ -64,8 +68,8 @@ class Solve:
         """Make the field of ``seed`` and draw the requests to keep."""
         mix = self.cell.traffic
         self.seed = seed
-        self.a0.copy_(make_field(self.a0.shape, seed, self.device,
-                                 self.a0.dtype))
+        self.a0.copy_(field_of(self.cell.config, self.a0.shape, seed,
+                               self.device, self.a0.dtype))
         self.samples = sorted(random.Random(seed).sample(
             range(mix["sample_from"]), mix["check_samples"]))
         self.forget()
@@ -119,13 +123,23 @@ class Solve:
             torch.cuda.empty_cache()
         return answers
 
+    def check(self, answers: dict) -> dict:
+        return check(self.cell, self.seed, self.step, self.pairs, answers,
+                     self.device)
+
+
+def bench_for(cell: Cell, device, dtype=None):
+    """The bench of a cell: ``Solve`` on one card, ``ShardedSolve`` on
+    more."""
+    return (ShardedSolve if cell.chips > 1 else Solve)(cell, device, dtype)
+
 
 def check(cell: Cell, seed: int, step: int, pairs: int, answers: dict,
           device) -> dict:
     """Each answer's ``max_rel_err`` against the plain reference, run in
     fp64 on ``device`` from the field of ``seed`` as the benchmark made it."""
     dims, taps = reference.load_stc(cell.stc_path)
-    field = make_field(dims, seed, device)
+    field = field_of(cell.config, dims, seed, device)
     ref = reference.solve(field, taps, step, pairs)
     del field
     return {label: reference.max_rel_err(ans if torch.is_tensor(ans)
@@ -157,16 +171,19 @@ class Context:
     peaks: Optional[tuple]
 
 
-def card_line(device) -> dict:
-    """The card's name and power limit as ``nvidia-smi`` reads them."""
+def card_line(device, count: int = 1) -> dict:
+    """The name and power limit of the ``count`` cards from ``device`` on,
+    as ``nvidia-smi`` reads them."""
     index = torch.device(device).index or 0
     line = {"card": torch.cuda.get_device_name(index)}
+    cards = ",".join(str(index + i) for i in range(count))
     try:
         proc = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader", "-i", str(index)],
+             "--format=csv,noheader", "-i", cards],
             capture_output=True, text=True, timeout=60)
-        line["nvidia_smi"] = proc.stdout.strip() or proc.stderr.strip()
+        line["nvidia_smi"] = "; ".join(
+            (proc.stdout.strip() or proc.stderr.strip()).splitlines())
     except (OSError, subprocess.TimeoutExpired) as err:
         line["nvidia_smi"] = f"not read: {err}"
     return line
@@ -179,7 +196,7 @@ def _number(x: float):
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
              t_start: float):
     """One run: returns ``(result, check_lines, card)``."""
-    bench = Solve(cell, device)
+    bench = bench_for(cell, device)
     bench.load(seed)
     driver = cell.driver()
     mix = cell.traffic
@@ -195,7 +212,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         sl = trace.traced_slice(bench, driver, mix, first=attempted)
         attempted += sl.requests
     cuda = bench.device.type == "cuda"
-    peak = torch.cuda.max_memory_allocated(bench.device) if cuda else 0
+    # the fullest card's peak
+    peak = max(torch.cuda.max_memory_allocated(dev)
+               for dev in bench.devices) if cuda else 0
     name = torch.cuda.get_device_name(bench.device) if cuda else "cpu"
     work = bench.work()
     ctx = Context(setup_s, window, sl, work, card_peaks(name))
@@ -205,8 +224,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         if value is not None:
             metrics[metric] = {"value": value, "unit": unit}
 
-    step, pairs = bench.step, bench.pairs
-    errors = check(cell, seed, step, pairs, bench.release(), bench.device)
+    errors = bench.check(bench.release())
     limit = cell.limits[CHECKED]
     worst = max(errors.values())
     failed = sum(not e <= limit for e in errors.values())
@@ -222,4 +240,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     lines = [f"{label}: {CHECKED} {err!r}" for label, err in errors.items()]
     lines.append(f"{CHECKED} {worst!r} limit {limit!r} "
                  f"({'correct' if failed == 0 else 'NOT correct'})")
-    return result, lines, card_line(bench.device) if cuda else {"card": name}
+    card = (card_line(bench.device, len(bench.devices)) if cuda
+            else {"card": name})
+    return result, lines, card

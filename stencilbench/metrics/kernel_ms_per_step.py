@@ -1,5 +1,6 @@
-"""Device milliseconds of the slice's kernels per timestep they computed
-(``pairs x 2 x step`` per request, at least the requested ones)."""
+"""Device milliseconds of the slice's kernels per card per timestep they
+computed (``pairs x 2 x step`` per request, at least the requested ones):
+the kernels' time summed over the cards, over the cards the run used."""
 
 
 def read(ctx):
@@ -10,4 +11,4 @@ def read(ctx):
     if not kernels:
         return None
     kernel_ms = sum(b - a for a, b, _ in kernels) / 1e3
-    return kernel_ms / (sl.requests * ctx.work.computed_timesteps)
+    return kernel_ms / sl.cards / (sl.requests * ctx.work.computed_timesteps)

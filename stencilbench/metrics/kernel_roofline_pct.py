@@ -2,9 +2,11 @@
 kernels that ran in it, in percent. The work is counted from the `.stc`
 table and the grid alone (``work.Work``): (2 taps - 1) flops per cell per
 requested timestep, one read of the field and one write of the result per
-request; the least time is the larger of the two at the card's data-sheet
+request; the least time is the larger of the two at one card's data-sheet
 peaks. Every kernel of the slice counts: the reset and the readback are
-copies, so in these mixes only the stencil kernels run."""
+copies, so in these mixes only the stencil kernels run. On several cards the
+kernels' time is summed over them, so the whole grid's work at one card's
+peaks over it is each card's share of its own roofline, averaged."""
 
 
 def read(ctx):

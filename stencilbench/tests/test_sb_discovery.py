@@ -7,16 +7,18 @@ import os
 import pytest
 
 from stencilbench import cells, harness
-from stencilbench.conftest import copy_bench, DEFERRED, SMALL
+from stencilbench.conftest import copy_bench, DEFERRED, SHARDED, SMALL
 
 BENCH = cells.benchmark(cells.ROOT)
 
 
-@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]
-                                  + DEFERRED["workloads"]])
+ENTRIES = {w["name"]: w for w in BENCH["workloads"] + DEFERRED["workloads"]}
+
+
+@pytest.mark.parametrize("name", list(ENTRIES))
 def test_every_cell_loads(tmp_path, name):
     cell = cells.load_cell(name, copy_bench(str(tmp_path)))
-    assert cell.chips == 1
+    assert cell.chips == ENTRIES[name]["chips"] in (1, 4)
     assert os.path.isfile(cell.stc_path)
     assert hasattr(cell.driver(), "run")
     assert cell.limits[harness.CHECKED] > 0
@@ -38,19 +40,31 @@ def test_every_metric_has_a_reader():
 
 
 def test_metrics_follow_their_workloads_key(tmp_path):
+    """A cell reports each metric whose ``workloads`` names it, or that has
+    no such key: the per-layer lists as BENCHMARK.json and the deferred
+    entries give them."""
     root = copy_bench(str(tmp_path))
+    with open(os.path.join(os.path.dirname(root), "BENCHMARK.json")) as f:
+        per_layer = json.load(f)["per_layer"]
 
     def names(cell, trace):
         return {m[0] for m in cells.load_cell(cell, root).metrics(trace)}
 
+    def listed(cell):
+        return {m["name"] for m in per_layer
+                if cell in m.get("workloads", [cell])}
+
+    for cell in ENTRIES:
+        assert names(cell, True) == listed(cell)
     assert names("2d25pt_box.return48", True) == {"readback_ms"}
-    assert names("2d25pt_box.solve48", True) == names(
-        "3d7pt_star.solve48", True) == {"kernel_roofline_pct",
-                                        "kernel_ms_per_step",
-                                        "device_idle_pct"}
+    solve = {"kernel_roofline_pct", "kernel_ms_per_step", "device_idle_pct"}
+    assert solve < names("2d25pt_box.solve48", True) == names(
+        "3d7pt_star.solve48", True)
+    assert names(SHARDED, True) == solve | {"exchange_ms"}
     assert names("2d25pt_box.return48", False) == {"solve_p95_ms",
                                                    "setup_s"}
-    assert names("3d7pt_star.solve48", False) == {"gstencil_s", "setup_s"}
+    for cell in ("3d7pt_star.solve48", SHARDED):
+        assert names(cell, False) == {"gstencil_s", "setup_s"}
 
 
 def test_names_are_refused_outside_the_folder():

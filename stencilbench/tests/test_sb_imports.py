@@ -42,3 +42,12 @@ def test_reference_imports_nothing_of_the_program(name):
     names = set(imported(os.path.join(cells.ROOT, name)))
     assert not [n for n in names if n.startswith("drstencil_tpu")]
     assert not [n for n in names if n.startswith("stencilbench")]
+
+
+def test_the_cone_check_imports_nothing_of_the_program():
+    """``cones`` runs the reference on crops; of the benchmark it takes the
+    reference alone."""
+    names = set(imported(os.path.join(cells.ROOT, "cones.py")))
+    assert not [n for n in names if n.startswith("drstencil_tpu")]
+    assert {n for n in names if n.startswith("stencilbench")} == {
+        "stencilbench"}

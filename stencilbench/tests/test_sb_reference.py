@@ -85,6 +85,7 @@ def test_control_fails_the_limit(small_root, name):
     errors = harness.check(cell, 3, bench.step, bench.pairs,
                            bench.answers(), bench.device)
     assert max(errors.values()) > 10 * cell.limits[harness.CHECKED]
+    assert bench.check(bench.answers()) == errors
 
 
 def unchanged(self, state, pairs):

@@ -1,8 +1,7 @@
 """The readers of the program's own spans and counters, on synthetic traces:
 ``launch_host_us`` (the apply spans' self time), ``idle_host_pct`` (idle
 stretches the program's host path caused) and ``plan_setup_s`` (the plan
-cache's seconds). ``BENCHMARK.json`` does not list them yet (``PENDING``);
-the tests read them in a copy that does."""
+cache's seconds), which ``BENCHMARK.json`` lists for the solve cells."""
 
 import json
 import os
@@ -11,26 +10,15 @@ import re
 import pytest
 
 from stencilbench import cells, harness, trace, work
-from stencilbench.conftest import copy_bench
+from stencilbench.conftest import SHARDED, copy_bench
 
 K = "stencil_kernel(float const*, float*)"
 APPLY = "drstencil.apply stencil2d_levels plan_0123456789abcdef"
 SOLVE_CELLS = ["2d25pt_box.solve48", "3d7pt_star.solve48"]
-HOST = "host side (ops/stream apply, ops/kernels wrappers)"
-# the entries that add the three metrics to the solve cells
-PENDING = [
-    {"name": "launch_host_us", "unit": "us", "better": "lower",
-     "source": "device_trace", "layer": HOST, "moves": "gstencil_s",
-     "workloads": SOLVE_CELLS},
-    {"name": "idle_host_pct", "unit": "%", "better": "lower",
-     "source": "device_trace", "layer": HOST, "moves": "gstencil_s",
-     "workloads": SOLVE_CELLS},
-    {"name": "plan_setup_s", "unit": "s", "better": "lower",
-     "source": "host_clock",
-     "layer": "kernels' build (ops/kernels plan cache, ops/codegen text)",
-     "moves": "setup_s", "workloads": SOLVE_CELLS},
-]
-NEW = {m["name"] for m in PENDING}
+NEW = {"launch_host_us", "idle_host_pct", "plan_setup_s"}
+# the three metrics' entries in BENCHMARK.json
+ENTRIES = [m for m in cells.benchmark(cells.ROOT)["per_layer"]
+           if m["name"] in NEW]
 
 
 def ev(cat, name, ts, dur, corr=None, tid=1):
@@ -194,25 +182,25 @@ def test_plan_setup_s_reads_the_plan_counters(monkeypatch):
 
 @pytest.mark.parametrize("name", SOLVE_CELLS)
 def test_the_solve_cells_report_the_new_metrics(tmp_path, name):
-    """With the pending entries appended, each solve cell reports the
-    three metrics in a traced run, and only there."""
+    """Each solve cell reports the three metrics in a traced run, and only
+    there; the four-card cell does not (its host issues no run_pairs)."""
     root = copy_bench(str(tmp_path))
-    path = os.path.join(os.path.dirname(root), "BENCHMARK.json")
-    with open(path) as f:
+    with open(os.path.join(os.path.dirname(root), "BENCHMARK.json")) as f:
         bench = json.load(f)
-    bench["per_layer"] += PENDING
-    with open(path, "w") as f:
-        json.dump(bench, f)
     cell = cells.load_cell(name, root)
     layer = {m[0]: m[1] for m in cell.metrics(trace=True)}
     assert NEW <= set(layer)
     assert (layer["launch_host_us"], layer["idle_host_pct"],
             layer["plan_setup_s"]) == ("us", "%", "s")
     assert not NEW & {m[0] for m in cell.metrics(trace=False)}
+    assert not NEW & {m[0] for m in cells.load_cell(SHARDED, root).metrics(
+        trace=True)}
     e2e = {m["name"] for m in bench["end_to_end"]}
-    for m in PENDING:
-        assert m["moves"] in e2e and m["source"] in ("device_trace",
-                                                      "host_clock")
+    assert {m["name"] for m in ENTRIES} == NEW
+    for m in ENTRIES:
+        assert m["workloads"] == SOLVE_CELLS
+        assert m["moves"] in e2e and m["source"] in (
+            "device_trace", "program_span", "program_counter", "host_clock")
         assert re.fullmatch(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}", m["name"])
         assert re.fullmatch(r"[A-Za-z0-9_/%.-]{1,16}", m["unit"])
         assert 1 <= len(m["layer"]) <= 200

@@ -5,9 +5,11 @@ The slice is the host span ``stencilbench.slice`` around the loop and its
 final synchronize; every reading is clipped to it. Device operations are the
 trace's ``kernel``, ``gpu_memcpy`` and ``gpu_memset`` events; the harness's
 own spans (``stencilbench.reset``, ``.solve``, ``.readback``) are its
-``user_annotation`` events. The trace is written under the temporary
-directory and removed once read. A process holds one session only: a second
-one recorded no device event on the card.
+``user_annotation`` events. A device operation's card is its ``args.device``
+(its ``pid`` where that is missing); busy time and idle gaps are taken card
+by card, so a card counts as idle while another one runs. The trace is
+written under the temporary directory and removed once read. A process
+holds one session only: a second one recorded no device event on the card.
 """
 
 from __future__ import annotations
@@ -43,27 +45,33 @@ def union_us(intervals) -> float:
     return total
 
 
+def card_of(event):
+    """The card a device event ran on."""
+    return (event.get("args") or {}).get("device", event.get("pid"))
+
+
 @dataclass
 class Slice:
     """A traced slice: its events, its span ``[t0, t1)`` in the trace's
-    microseconds, and the requests it ran."""
+    microseconds, the requests it ran and the cards the run used."""
 
     events: list
     t0: float
     t1: float
     requests: int
+    cards: int = 1
 
     @property
     def window_s(self) -> float:
         return (self.t1 - self.t0) / 1e6
 
-    def _clipped(self, cats):
+    def _clipped(self, cats, by_card=False):
         out = []
         for e in self.events:
             if e.get("cat") in cats and "dur" in e:
                 a, b = _interval(e, self.t0, self.t1)
                 if b > a:
-                    out.append((a, b, e["name"]))
+                    out.append((a, b, card_of(e) if by_card else e["name"]))
         return out
 
     def device_ops(self):
@@ -73,6 +81,18 @@ class Slice:
     def kernels(self):
         return self._clipped(("kernel",))
 
+    def copies(self):
+        return self._clipped(("gpu_memcpy",))
+
+    def per_card(self, cats=DEVICE_CATS) -> list:
+        """``(start, end)`` intervals of the operations of ``cats``, one
+        list a card: ``cards`` lists at least, cards with none empty."""
+        cards = defaultdict(list)
+        for a, b, card in self._clipped(cats, by_card=True):
+            cards[card].append((a, b))
+        lists = list(cards.values())
+        return lists + [[] for _ in range(self.cards - len(lists))]
+
     def spans(self, name: str):
         """Durations in seconds of the harness's spans named ``name``."""
         return [e["dur"] / 1e6 for e in self.events
@@ -80,12 +100,15 @@ class Slice:
                 and self.t0 <= e["ts"] <= self.t1]
 
     def busy_s(self) -> float:
-        """Seconds in which some operation ran on the device."""
-        return union_us((a, b) for a, b, _ in self.device_ops()) / 1e6
+        """Seconds in which some operation ran on a card, averaged over the
+        cards."""
+        busy = [union_us(ops) for ops in self.per_card()]
+        return sum(busy) / len(busy) / 1e6
 
     def breakdown(self) -> dict:
         """The device operations that took most time, and the longest idle
-        gaps summed by what the host was doing when each began."""
+        gaps summed by what the host was doing when each began, both summed
+        over the cards."""
         ops = defaultdict(float)
         for a, b, name in self.device_ops():
             ops[name] += (b - a) / 1e6
@@ -102,13 +125,15 @@ class Slice:
                               for n, (s, c) in top_gaps]}
 
     def _gaps(self):
-        end = self.t0
-        for a, b in sorted((a, b) for a, b, _ in self.device_ops()):
-            if a > end:
-                yield end, a
-            end = max(end, b)
-        if self.t1 > end:
-            yield end, self.t1
+        """Each card's stretches with no operation running on it."""
+        for ops in self.per_card():
+            end = self.t0
+            for a, b in sorted(ops):
+                if a > end:
+                    yield end, a
+                end = max(end, b)
+            if self.t1 > end:
+                yield end, self.t1
 
     def _host_events(self):
         """``(start, end, name)`` of the harness's spans and of the host's
@@ -145,8 +170,9 @@ def _host_at(host, t: float) -> str:
     return f"{span[len(SPAN_PREFIX):]}: {op}"
 
 
-def read_slice(path: str, requests: int) -> Slice:
-    """The slice of the chrome trace at ``path``."""
+def read_slice(path: str, requests: int, cards: int = 1) -> Slice:
+    """The slice of the chrome trace at ``path``, of a run on ``cards``
+    cards."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     spans = [e for e in events if e.get("cat") == "user_annotation"
@@ -155,7 +181,7 @@ def read_slice(path: str, requests: int) -> Slice:
         raise RuntimeError(f"the trace holds {len(spans)} '{SLICE}' spans")
     t0 = spans[0]["ts"]
     sl = Slice(events=events, t0=t0, t1=t0 + spans[0]["dur"],
-               requests=requests)
+               requests=requests, cards=cards)
     if not sl.device_ops():
         raise RuntimeError("the trace holds no device operation in the "
                            "slice: the profiler recorded no CUDA activity")
@@ -176,6 +202,6 @@ def traced_slice(bench, driver, mix: dict, first: int) -> Slice:
                 run = driver.run(bench, mix, requests=mix["trace_requests"],
                                  first=first, span=record_function)
         prof.export_chrome_trace(path)
-        return read_slice(path, run.requests)
+        return read_slice(path, run.requests, len(bench.devices))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -11,6 +11,7 @@ table), and one read of the input field and one write of the result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -31,6 +32,35 @@ def make_field(dims, seed: int, device, dtype=torch.float32) -> torch.Tensor:
     field = torch.rand(tuple(dims), generator=gen, device=device,
                        dtype=torch.float32).mul_(100.0)
     return field.to(dtype)
+
+
+def block_seed(seed: int, block: int) -> int:
+    """The seed of axis-0 block ``block`` of a field made per block: 64
+    bits of the SHA-256 of ``"<seed>/<block>"``."""
+    digest = hashlib.sha256(f"{seed}/{block}".encode()).digest()
+    return int.from_bytes(digest[:8], "little")
+
+
+def make_block(dims, blocks: int, block: int, seed: int, device,
+               dtype=torch.float32) -> torch.Tensor:
+    """Block ``block`` of ``blocks`` equal blocks along axis 0 of a field
+    made per block: ``make_field`` of the block's own shape and seed."""
+    if dims[0] % blocks:
+        raise ValueError(f"axis 0 of {tuple(dims)} is not {blocks} blocks")
+    shape = (dims[0] // blocks,) + tuple(dims[1:])
+    return make_field(shape, block_seed(seed, block), device, dtype)
+
+
+def field_of(config: dict, dims, seed: int, device,
+             dtype=torch.float32) -> torch.Tensor:
+    """The initial field of a configuration: ``make_field`` of the whole
+    grid, or where the configuration states ``field_blocks``, its axis-0
+    blocks made one by one (``make_block``) and joined."""
+    blocks = config.get("field_blocks", 1)
+    if blocks == 1:
+        return make_field(dims, seed, device, dtype)
+    return torch.cat([make_block(dims, blocks, k, seed, device, dtype)
+                      for k in range(blocks)])
 
 
 def pairs_per_request(timesteps: int, step: int) -> int:
