@@ -64,7 +64,10 @@ It builds the CUDA kernels from the sources in the checkout (nvcc, into
     bit-unchanged; the empty range launches nothing): the levels' builds on
     ``SHARD_STENCILS``' winners, and factor mode's
     (``stencil2d_factor_levels_shard``) on each of ``FACTOR_STENCILS`` x
-    ``FACTOR_STEPS``;
+    ``FACTOR_STEPS``; then the 3D shard kernel on one card's slab of a grid
+    split in four, past 2**31 cells (``BIG_SLAB``; ``big_slab_phase``,
+    which also runs alone: ``python3 -c 'import chip_smoke;
+    chip_smoke.big_slab_phase()'``);
 11. the sharded main path — ``sharded_stream_pair(spec, best_config(name),
     make_mesh(4, devices=["cuda:0"] * 4))`` at the ``.stc`` size for every
     winner in fp32 and four of them in bf16: one pair against the
@@ -167,6 +170,11 @@ N_SHARDS = 4
 # phase 10: the stencils whose plans the shard kernels are held on; the
 # bf16 sharded main path runs the same four, so every row has launches
 SHARD_STENCILS = ("2d5pt_star", "2d25pt_box", "3d7pt_star", "3d27pt_box")
+# phase 10: a grid split in four along axis 0 whose slab (with its ghost
+# planes: 776 x 2048 x 2048 for 3d7pt_star's winner) passes 2**31 cells,
+# and the planes stored in each crop its shard kernel is checked on
+BIG_SLAB = ("3d7pt_star", (3072, 2048, 2048))
+BIG_SLAB_CROP = 16
 # phase 12: factor mode's stencils and steps (phases 10-12 run its shard
 # build on each, in both dtypes)
 FACTOR_STENCILS = ("2d25pt_box", "2d9pt_star", "2d9pt_cross")
@@ -1477,6 +1485,8 @@ def main(argv=None) -> int:
                              for n in FACTOR_STENCILS
                              for step in FACTOR_STEPS
                              for dt in ("float32", "bfloat16")}
+        if BIG_SLAB[0] in specs:
+            report["big_slab"] = big_slab_phase()
 
         # -- 11. the sharded main path at the .stc size ---------------------------
         for dt, lines in zip(shard_rows, sharded_phase()):
@@ -1729,6 +1739,68 @@ def trace_phase() -> dict:
     if not counted == out["launches"] == expect:
         raise RuntimeError(f"trace phase failed: {out}")
     return out
+
+
+def big_slab_phase() -> dict:
+    """Phase 10's slab past 2**31 cells: the shard kernel of ``BIG_SLAB``'s
+    winner on one card's slab of its grid split in ``N_SHARDS`` along axis
+    0, storing every real plane, held against its plain version (<=
+    ``KERNEL_TOL`` relative) on crops of ``BIG_SLAB_CROP`` planes: the
+    first real planes, those around the first plane whose cells lie 2**31
+    or more past the slab's start, and the last; the ghost planes must come
+    back zero.  The launch is timed.  Raises on a failed check."""
+    import torch
+
+    from drstencil_tpu_torch.ir.spec import StencilSpec, load_stc
+    from drstencil_tpu_torch.ops import kernels
+    from drstencil_tpu_torch.ops.stream import level_plan
+    from drstencil_tpu_torch.parallel import stream_shard
+    from drstencil_tpu_torch.tune.tuned import best_config
+
+    name, dims = BIG_SLAB
+    base = load_stc(os.path.join(ROOT, "benchmarks", name + ".stc"))
+    spec = StencilSpec(base.name, dims, base.iterations, base.taps)
+    cfg = best_config(name)
+    an = stream_shard.local_analysis(spec, cfg, N_SHARDS)
+    plan = level_plan(an, cfg)
+    H, local, crop = plan.frame, an.spec.dims[0], BIG_SLAB_CROP
+    shape = (local + 2 * H,) + tuple(dims[1:])
+    plane = shape[1] * shape[2]
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    src = torch.rand(shape, generator=gen, device=dev).mul_(100.0)
+    dst = torch.zeros_like(src)
+    kernel = kernels.kernel_for(3, shard=True)
+    rows = (H, H + local)
+    kernel(src, dst, plan, rows)
+    torch.cuda.synchronize()
+    past = -(-2**31 // plane)
+    row = {"name": kernel.name, "stencil": name, "cfg": cfg.label(),
+           "dims": list(shape), "cells": src.numel(),
+           "first_plane_past_2_31": past, "crops": []}
+    ok = src.numel() > 2**31
+    for lo in (H, past - crop // 2, H + local - crop):
+        want = torch.zeros((crop + 2 * H,) + shape[1:], device=dev)
+        kernel.plain(src[lo - H:lo + crop + H], want, plan, (H, H + crop))
+        want = want[H:H + crop]
+        err = (float((dst[lo:lo + crop] - want).abs().max())
+               / float(want.abs().max()))
+        row["crops"].append({"planes": [lo, lo + crop], "rel_err": err})
+        ok = ok and err <= KERNEL_TOL
+        del want
+    ghosts = torch.cat([dst[:H], dst[H + local:]])
+    row["ghosts_zero"] = not bool(ghosts.any())
+    ok = ok and row["ghosts_zero"]
+    del ghosts
+    row["ms"] = cuda_ms(torch, lambda: kernel(src, dst, plan, rows), 5)
+    row["card"] = nvidia_smi_line()
+    print("big slab " + json.dumps(row))
+    del src, dst
+    torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError(f"{kernel.name} on a slab past 2**31 cells: {row}")
+    return row
 
 
 if __name__ == "__main__":

@@ -88,6 +88,8 @@ BUILDS = {torch.float32: "", torch.bfloat16: "_bf16"}
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 # nvcc processes :func:`build_plans` runs at once
 BUILD_WORKERS = 16
+# cells an axis of a levels kernel's grid stays under (:func:`check_grid`)
+AXIS_LIMIT = 2**30
 # tile2d_fused's tables and layouts, as the experiment makes them: at most
 # this many column shifts, and a pad height ``tm`` that is a multiple of
 # TILE2D_TM_MULTIPLE (the JAX experiment's 8-row blocks) dividing the data
@@ -735,11 +737,29 @@ def overlap_probe_ref(x: torch.Tensor, out: torch.Tensor, variant: str,
 
 # -- wrappers ----------------------------------------------------------------
 
+def check_grid(name: str, src: torch.Tensor) -> None:
+    """Refuse a grid (or ghosted slab) ``src`` that ``codegen.cuda_source``'s
+    text cannot index; reads only ``src.shape``, so a meta tensor will do.
+    The text widens every global address to ``size_t`` before its first
+    product with an extent, so the grid's cell count has no limit.  It
+    holds in ``int`` the positions along each axis, of which it adds two (a
+    segment's end ``a0 + SEG``), so each axis must stay under
+    ``AXIS_LIMIT``.  (A CTA's staged plane, whose quads it also indexes in
+    ``int``, is held far below ``2**31`` by ``codegen.geometry``'s shared
+    memory limit.)"""
+    for axis, d in enumerate(int(d) for d in src.shape):
+        if d >= AXIS_LIMIT:
+            raise ValueError(f"{name}: axis {axis} of {d} cells; the kernel "
+                             f"holds positions in int, under {AXIS_LIMIT} "
+                             "an axis")
+
+
 class LevelsKernel:
     """Wrapper of one levels kernel: ``kernel(src, dst, taps)`` writes the
     interior of ``dst`` in place and returns it.  ``src`` and ``dst``
     share one dtype of ``BUILDS``.  On CUDA tensors it launches the
-    per-plan kernel (:func:`plan_kernel`, built at first use); ``launches``
+    per-plan kernel (:func:`plan_kernel`, built at first use) on a grid
+    that :func:`check_grid` admits; ``launches``
     counts those launches in both dtypes (never the plain version's calls).
 
     A shard-local kernel (``shard=True``) is called as ``kernel(src, dst,
@@ -771,6 +791,7 @@ class LevelsKernel:
         key = (id(taps), tuple(src.shape), src.dtype, src.device)
         hit = self._plans.get(key)
         if hit is None or hit[0] is not taps:
+            check_grid(self.name, src)
             hit = self._plans[key] = (taps, plan_kernel(
                 taps, src.shape, src.dtype, self.shard))
         plan = hit[1]
@@ -815,9 +836,6 @@ class LevelsKernel:
             raise ValueError(f"{self.name} needs contiguous tensors")
         if src.untyped_storage().data_ptr() == dst.untyped_storage().data_ptr():
             raise ValueError(f"{self.name}: src and dst share storage")
-        if src.numel() >= 2**31:
-            raise ValueError(f"{self.name}: grid of {src.numel()} cells "
-                             "exceeds the kernel's int indexing")
         if self.shard and store[0] >= store[1]:
             return dst      # nothing to store: no kernel runs, none is counted
         with torch.cuda.device(src.device):

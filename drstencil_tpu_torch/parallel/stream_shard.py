@@ -46,6 +46,7 @@ from drstencil_tpu_torch.ir.spec import StencilSpec
 from drstencil_tpu_torch.ops import stream as stream_mod
 from drstencil_tpu_torch.ops.config import KernelConfig
 from drstencil_tpu_torch.parallel.halo import Mesh
+from drstencil_tpu_torch.utils.profiling import span
 
 
 def local_analysis(spec: StencilSpec, cfg: KernelConfig,
@@ -65,24 +66,33 @@ def local_analysis(spec: StencilSpec, cfg: KernelConfig,
 class HaloExchange:
     """Copies every shard's ``halo`` edge rows into its neighbours' ghost
     rows: ``2 * (n - 1)`` copies of ``halo * prod(dims[1:]) * itemsize``
-    bytes per call.  ``copies`` and ``bytes`` count what was copied."""
+    bytes per call.  ``calls``, ``copies`` and ``bytes`` count the calls
+    and what they copied.  Each call is the span ``drstencil.halo``
+    (:func:`utils.profiling.span`), whose ``gpu_user_annotation`` on a
+    card covers the copies it issued there."""
+
+    SPAN = "drstencil.halo"
 
     def __init__(self, halo: int, local_rows: int):
         self.halo = halo
         self.local_rows = local_rows
+        self.calls = 0
         self.copies = 0
         self.bytes = 0
 
     def __call__(self, slabs: Sequence[torch.Tensor]) -> None:
         h, rows = self.halo, self.local_rows
-        for lower, upper in zip(slabs[:-1], slabs[1:]):
-            # the lower shard's last real rows -> the upper's low ghosts,
-            # the upper's first real rows -> the lower's high ghosts
-            for dst, src in ((upper[:h], lower[rows:rows + h]),
-                             (lower[h + rows:], upper[h:2 * h])):
-                dst.copy_(src, non_blocking=True)
-                self.copies += 1
-                self.bytes += src.numel() * src.element_size()
+        with span(self.SPAN):
+            for lower, upper in zip(slabs[:-1], slabs[1:]):
+                # the lower shard's last real rows -> the upper's low
+                # ghosts, the upper's first real rows -> the lower's high
+                # ghosts
+                for dst, src in ((upper[:h], lower[rows:rows + h]),
+                                 (lower[h + rows:], upper[h:2 * h])):
+                    dst.copy_(src, non_blocking=True)
+                    self.copies += 1
+                    self.bytes += src.numel() * src.element_size()
+        self.calls += 1
 
 
 @dataclass
