@@ -76,11 +76,19 @@ Design (:class:`Geometry` holds the numbers):
   with ``cp.async`` (out-of-domain quads zero-filled) into a small staging
   ring in the state's own type, and each thread converts the quads it
   requested on the way into the fp32 ring: a strip's row is only 2 KB, and
-  tens of KB must be in flight per SM to keep device memory busy.  Every
-  other plan requests the next plane's quads into registers before the
-  step's levels and stages them after (a plane is 8 KB or more, and the
-  rings leave no shared memory for more planes).  The staging depth is
-  not a knob: ``KernelConfig.prefetch`` is accepted and changes nothing.
+  tens of KB must be in flight per SM to keep device memory busy.  A
+  windowed 3D plan (one CTA an SM, so no other CTA hides a plane's fetch)
+  whose rows are whole 16-byte pieces in either type gets its planes by
+  TMA: one thread asks for each staged plane as one box of a 3D tensor map
+  (the copy engine fills zeros outside the domain) ``AHEAD`` steps before
+  its use, into a ring of slots in the state's type, and waits on the
+  slot's mbarrier a step before; every thread then reads its quad from the
+  slot at the step's start (``_feed_3d``; the host encodes the map once a
+  source buffer).  Every other plan requests the next plane's quads into
+  registers before the step's levels and stages them after (a plane is 8
+  KB or more, and the rings leave no shared memory for more planes).  The
+  staging depth is not a knob: ``KernelConfig.prefetch`` is accepted and
+  changes nothing.
 - Every shape is a ``constexpr``; coefficients are float32 hexadecimal
   literals; no table is passed.  The interface is plain C: ``launch(src,
   dst[, s_lo, s_hi], stream)`` returns ``cudaGetLastError()``.
@@ -151,6 +159,12 @@ REGISTER_FILE = 65536
 # a strip's row is 2 KB, and an SM needs tens of KB in flight to keep device
 # memory busy
 AHEAD_2D = 8
+# 3D with register windows: at most this many source planes requested ahead
+# of their use by TMA, in AHEAD_3D + 1 slots (fewer where shared memory holds
+# fewer; always a power of two), and the widest box the copy engine takes
+# along an axis
+AHEAD_3D = 3
+TMA_BOX = 256
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -209,7 +223,9 @@ class Geometry:
     written (``_window_3d``).  ``ahead`` > 0
     (windowed plans with 16-byte access) is the number
     of source rows requested ahead by ``cp.async`` into ``ahead + 1``
-    staging rows; 0 stages through registers.  A ``factor`` plan (2D,
+    staging rows (2D), or of source planes requested ahead by TMA into
+    ``ahead + 1`` slots (3D, ``tma``: ``_feed_3d``); 0 stages through
+    registers.  A ``factor`` plan (2D,
     always windowed) keeps ``window_len`` rows of every level and stages
     ``tail`` source rows past its segment's window."""
 
@@ -281,7 +297,21 @@ class Geometry:
         return self.levels * self.ring + (self.ahead + 1 if self.ahead else 0)
 
     @property
+    def tma(self) -> bool:
+        """Whether the source planes arrive by TMA (a windowed 3D plan
+        with ``ahead`` > 0): each lands whole in a slot of its own, the
+        slots after the rings, each a plane rounded up to 128 bytes, and
+        an 8-byte mbarrier a slot after them."""
+        return self.window3d and self.ahead > 0
+
+    @property
     def smem_bytes(self) -> int:
+        if self.tma:
+            feed = _ceil_to(2 * self.guard + self.levels * self.ring
+                            * self.plane_cells, 32)
+            return (4 * (feed + (self.ahead + 1)
+                         * _ceil_to(self.plane_cells, 32))
+                    + 8 * (self.ahead + 1))
         return 4 * (2 * self.guard + self.window_planes * self.plane_cells)
 
     @property
@@ -409,6 +439,30 @@ def _window_3d(plan, ey: int, ex: int):
     return threads, wlen, dhi - dlo + 2, dhi
 
 
+def _feed_3d(dims, ey: int, ex: int, threads: int, regs: int,
+             rings: int) -> int:
+    """Source planes a windowed 3D plan requests ahead by TMA, 0 where it
+    fetches each into registers a step ahead.  A staged plane, ``ey x ex``
+    cells, is one box of the source (8 cells wider in bf16, whose boxes
+    start on 16 bytes), so its rows and the grid's must be whole 16-byte
+    pieces in either state type (``ex`` and the grid's width multiples of
+    8).  Its slots (``Geometry.tma``) take the shared
+    memory that the rings (``rings`` floats with their guards) leave to
+    each of the CTAs an SM holds by their registers (``regs`` a thread in
+    windows), so that the feed costs no CTA an SM; at most ``AHEAD_3D``
+    planes, and at least one.  The slots are a power of two, so that a
+    plane's slot is a mask of its index (on the card 4 slots ran 4-7%
+    faster than 3, 5 or 9 at four levels)."""
+    if dims[-1] % 8 or ex % 8 or max(ey, ex + 8) > TMA_BOX:
+        return 0
+    ctas = max(1, min(REGISTER_FILE // (threads * (
+        regs + REGS_BESIDE_WINDOWS)), 2048 // threads, 8))
+    budget = SMEM_LIMIT if ctas == 1 else SMEM_LIMIT // ctas - SMEM_RESERVED
+    fit = min(AHEAD_3D + 1, (budget - 4 * _ceil_to(rings, 32))
+              // (4 * _ceil_to(ey * ex, 32) + 8))
+    return (1 << (fit.bit_length() - 1)) - 1 if fit >= 2 else 0
+
+
 def _column_entries(dims, frame: int):
     """(nominal column, x width, staged plane (ey, ex) cut to the grid) of
     every ``STRIP_2D`` strip (2D) or ``COLUMNS_3D`` column (3D), widest
@@ -491,6 +545,8 @@ def geometry(plan, dims, sms: int = SM_COUNT, segment=None,
                 break
     if win3:
         ey, ex, threads, wlen, ring, dhi = win3
+        ahead = _feed_3d(dims, ey, ex, threads, QUAD * L * wlen,
+                         2 * guard + L * ring * ey * ex)
     elif column is None:
         shapes = [e[2] for e in entries]
         fits = ([s for s in shapes if smem(*s) <= SMEM_TARGET]
@@ -758,9 +814,11 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
              "passed.")
     o.append("#include <cuda_bf16.h>")
     o.append("#include <cuda_runtime.h>")
-    if g.ahead:
+    if g.ahead and not g.tma:
         o.append("#include <cuda_pipeline.h>")
     o.append("#include <stddef.h>")
+    if g.tma:
+        o.append("#include <mutex>")
     o.append("")
     o.append(f"typedef {'__nv_bfloat16' if bf16 else 'float'} T;"
              "  // the state's storage type")
@@ -814,20 +872,47 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
         else:
             o.append("constexpr int WINDOW = 2 * REACH + 1;")
         o.append("static_assert(STAGE == 1, \"one quad per thread\");")
-    if g.ahead:
+    if g.tma:
         o.append(f"constexpr int AHEAD = {g.ahead};  // source planes "
-                 "requested ahead of their use (cp.async)")
-        o.append("constexpr int STAGING = (AHEAD + 1) * PLANE;  // their "
-                 "staging planes, sized for fp32")
+                 "requested ahead of their use (TMA)")
+        o.append("constexpr int SLOTS = AHEAD + 1;  // where they land, "
+                 "sized for fp32")
+        o.append("// a slot's floats and the first slot's offset: whole 128 "
+                 "bytes, as a box lands")
+        o.append("constexpr int SLOT = (PLANE + 31) / 32 * 32;")
+        o.append("constexpr int FEED = (2 * GUARD + LEVELS * RING * PLANE + "
+                 "31) / 32 * 32;")
+        if bf16:
+            o.append("// a box starts on a whole 16 bytes of the source: at "
+                     "x0 rounded down to 8 cells,")
+            o.append("// so it is 8 cells wider than the staged plane")
+            o.append("constexpr int BX = EX + 8;")
+        else:
+            o.append("constexpr int BX = EX;  // a box is a staged plane (x0 "
+                     "is a multiple of 4 cells)")
+        o.append("constexpr unsigned BOX_BYTES = EY * BX * sizeof(T);")
+        o.append("// the rings, the slots, and an mbarrier a slot")
+        o.append("constexpr size_t SMEM_BYTES =")
+        o.append("    (size_t)(FEED + SLOTS * SLOT) * sizeof(float) + "
+                 "SLOTS * sizeof(uint64_t);")
     else:
-        o.append("constexpr int STAGING = 0;")
-    o.append("constexpr size_t SMEM_BYTES =")
-    o.append("    (size_t)(2 * GUARD + LEVELS * RING * PLANE + STAGING) * "
-             "sizeof(float);")
+        if g.ahead:
+            o.append(f"constexpr int AHEAD = {g.ahead};  // source planes "
+                     "requested ahead of their use (cp.async)")
+            o.append("constexpr int STAGING = (AHEAD + 1) * PLANE;  // their "
+                     "staging planes, sized for fp32")
+        else:
+            o.append("constexpr int STAGING = 0;")
+        o.append("constexpr size_t SMEM_BYTES =")
+        o.append("    (size_t)(2 * GUARD + LEVELS * RING * PLANE + STAGING) * "
+                 "sizeof(float);")
     o.append(f"static_assert(SMEM_BYTES == {g.smem_bytes}, \"geometry\");")
     o.append("")
     o += _io_text(bf16, g.vec)
     o.append("")
+    if g.tma:
+        o += _TMA_TEXT.split("\n")
+        o.append("")
     plane_args = "int g0" + (", int y0" if d3 else "") + ", int x0"
     row_expr = ("((size_t)g0 * M + gy) * N" if d3 else "(size_t)g0 * N")
     if not g.ahead:
@@ -868,7 +953,7 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
         o.append("  }")
         o.append("}")
         o.append("")
-    if g.ahead:
+    if g.ahead and not g.tma:
         o.append("// Request plane g0 of the source (0 outside the domain) "
                  "into a staging plane,")
         o.append("// each thread the quads it will itself stage.")
@@ -929,7 +1014,7 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
     o += quad_text
     o.append("")
     if g.window3d:
-        o += _kernel_text_3d(g, shard, planes, beside)
+        o += _kernel_text_3d(g, shard, planes, beside, bf16)
     else:
         o += _kernel_text(g, shard, level_call)
     o.append("")
@@ -937,6 +1022,9 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
     o.append("  return cudaGetErrorString((cudaError_t)err);")
     o.append("}")
     o.append("")
+    if g.tma:
+        o += _MAP_CACHE_TEXT.split("\n")
+        o.append("")
     rng = ", int s_lo, int s_hi" if shard else ""
     o.append(f'extern "C" int launch(const void* src, void* dst{rng}, '
              "void* stream) {")
@@ -949,16 +1037,143 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
     o.append("      stencil_kernel, "
              "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);")
     o.append("  if (err != cudaSuccess) return (int)err;")
+    if g.tma:
+        o.append("  CUtensorMap map;")
+        o.append("  err = (cudaError_t)source_map(src, &map);")
+        o.append("  if (err != cudaSuccess) return (int)err;")
     o.append("  const dim3 block(THREADS);")
     o.append("  const dim3 grid(" + ", ".join(map(str, g.grid)) + ");"
              "  // columns, then segments")
     o.append("  stencil_kernel<<<grid, block, SMEM_BYTES, "
              "(cudaStream_t)stream>>>(")
-    o.append("      (const T*)src, (T*)dst" + (", s_lo, s_hi" if shard else "")
+    source = "map" if g.tma else "(const T*)src"
+    o.append(f"      {source}, (T*)dst" + (", s_lo, s_hi" if shard else "")
              + ");")
     o.append("  return (int)cudaGetLastError();")
     o.append("}")
     return "\n".join(o)
+
+
+# The TMA feed's device helpers and the host's encoder of a 3D tensor map,
+# between the markers that the tests' g++ emulation replaces with its own
+# (tests/cuda_emulation/bulk_copy.h); then request_plane, which asks for one
+# plane of a segment's window.
+_TMA_TEXT = r"""// ---- TMA bulk copy and mbarrier (PTX) ----------------------------------------
+#include <cuda.h>  // CUtensorMap; the CUDA driver API is reached through the runtime
+// Describe the (dims[2], dims[1], dims[0]) array at `base` of `elem`-byte cells (2: bf16,
+// 4: fp32) to the copy engine, in boxes of box[0] x box[1] x box[2] cells (x first),
+// unswizzled; a cell outside the array reads 0.  The encoder is the CUDA driver API's,
+// found through the runtime, so nothing links against libcuda.
+typedef CUresult (*encode_fn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+static int tma_encode_3d(CUtensorMap* map, const void* base, int elem,
+                         const unsigned long long dims[3], const unsigned box[3]) {
+  static encode_fn encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return (int)cudaErrorNotSupported;
+    encode = (encode_fn)fn;
+  }
+  const cuuint64_t size[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t strides[2] = {dims[0] * elem, dims[0] * dims[1] * elem};  // bytes
+  const cuuint32_t cells[3] = {box[0], box[1], box[2]};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+      const_cast<void*>(base), size, strides, cells, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Arm the barrier for one arrival a phase, and show it to the copy engine.
+__device__ __forceinline__ void tma_bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The one arrival of a phase, which expects `bytes` of copies to complete it.
+__device__ __forceinline__ void tma_bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Copy the box of `map` whose first cell is (x, y, z) into `dst` (128-byte aligned),
+// rows packed; its bytes are counted on `bar`.
+__device__ __forceinline__ void tma_copy_3d(void* dst, const CUtensorMap* map, int x, int y,
+                                            int z, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+         "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void tma_bar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+        " selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+// ---- end of PTX --------------------------------------------------------------
+
+// Ask the copy engine for plane k of the window, plane g0 + k of the source (0 outside
+// the domain), into slot k % SLOTS: one box, its bytes counted on that slot's barrier.
+__device__ __forceinline__ void request_plane(const CUtensorMap* map, float* slots,
+                                              uint64_t* full, int k, int g0, int y0, int x0) {
+  uint64_t* const bar = full + k % SLOTS;
+  tma_bar_expect(bar, BOX_BYTES);
+  tma_copy_3d(slots + k % SLOTS * SLOT, map, x0, y0, g0 + k, bar);
+}"""
+
+
+# The host's tensor maps of the source, one a buffer: a map holds its
+# buffer's address, so a ping-pong pair needs two, kept across launches;
+# maps_encoded counts the maps encoded.
+_MAP_CACHE_TEXT = r"""// The source's tensor map, encoded once a buffer and kept (a ping-pong pair needs two):
+// at most MAPS_KEPT, the oldest replaced first.
+constexpr int MAPS_KEPT = 16;
+static const void* g_map_src[MAPS_KEPT];
+static CUtensorMap g_maps[MAPS_KEPT];
+static long long g_maps_encoded = 0;
+static std::mutex g_maps_mutex;
+static int source_map(const void* src, CUtensorMap* map) {
+  std::lock_guard<std::mutex> lock(g_maps_mutex);
+  for (int k = 0; k < MAPS_KEPT; ++k)
+    if (g_map_src[k] == src) {
+      *map = g_maps[k];
+      return 0;
+    }
+  const int k = (int)(g_maps_encoded % MAPS_KEPT);
+  const unsigned long long dims[3] = {N, M, D};
+  const unsigned box[3] = {BX, EY, 1};
+  g_map_src[k] = nullptr;
+  const int err = tma_encode_3d(&g_maps[k], src, (int)sizeof(T), dims, box);
+  if (err) return err;
+  g_map_src[k] = src;
+  ++g_maps_encoded;
+  *map = g_maps[k];
+  return 0;
+}
+
+extern "C" long long maps_encoded() { return g_maps_encoded; }"""
 
 
 def _io_text(bf16: bool, vec: bool):
@@ -1228,15 +1443,17 @@ def _kernel_text(g: Geometry, shard: bool, level_call):
     return o
 
 
-def _kernel_text_3d(g: Geometry, shard: bool, planes, beside):
+def _kernel_text_3d(g: Geometry, shard: bool, planes, beside, bf16: bool):
     """The kernel of a windowed 3D plan: ``level_quad`` reads the planes at
     the axis-0 offsets ``planes`` from shared memory and takes the cells
-    ``beside`` (``_own_row_3d``) as arguments."""
+    ``beside`` (``_own_row_3d``) as arguments; ``bf16`` places a TMA-fed
+    text's boxes (``BX``)."""
     H, L, r = g.frame, g.levels, g.reach
     wl = g.window_len
     base = wl - 1 - r
     rng = ", int s_lo, int s_hi" if shard else ""
     lo0, hi0 = ("s_lo", "s_hi") if shard else ("H", "D - H")
+    xb = "x0 - xs" if bf16 else "x0"   # a TMA box's first column
     # the ring slot of the plane a level writes is (its output plane + woff)
     # % RING: that plane is REACH - dhi planes older, and woff >= 0
     woff = g.ring * r - r + g.dhi
@@ -1245,10 +1462,12 @@ def _kernel_text_3d(g: Geometry, shard: bool, planes, beside):
         return ([f"{pad}w[{t}][{i}] = w[{t}][{i + 1}];" for i in range(wl - 1)]
                 + [f"{pad}w[{t}][{wl - 1}] = {value};"])
 
+    source = ("const __grid_constant__ CUtensorMap map" if g.tma
+              else "const T* __restrict__ src")
     o = ["__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)",
-         "stencil_kernel(const T* __restrict__ src, T* __restrict__ dst"
-         f"{rng}) {{",
-         "  extern __shared__ float4 smem4[];",
+         f"stencil_kernel({source}, T* __restrict__ dst{rng}) {{",
+         "  extern __shared__ " + ("__align__(128) " if g.tma else "")
+         + "float4 smem4[];",
          "  float* const smem = reinterpret_cast<float*>(smem4) + GUARD;",
          f"  // this CTA's segment [a0, a1) of the store range [{lo0}, {hi0}):"
          " uniform over the block",
@@ -1258,13 +1477,38 @@ def _kernel_text_3d(g: Geometry, shard: bool, planes, beside):
          "  const int n0 = a1 - a0;",
          "  // global coordinates of the plane's local (0, 0)",
          "  const int y0 = (int)blockIdx.y * TY - H;",
-         "  const int x0 = (int)blockIdx.x * TX - HX;",
-         "  Raw st[STAGE];",
-         "  // this thread's quad of every plane: quad q of row `row`; a "
-         "thread past the plane's",
-         "  // quads owns none",
-         "  const int i = threadIdx.x, row = i / QX, q = i - row * QX;",
-         "  // w[t][k]: the thread's quad of level t (0: the source) in the "
+         "  const int x0 = (int)blockIdx.x * TX - HX;"]
+    if not g.tma:
+        o.append("  Raw st[STAGE];")
+    o += ["  // this thread's quad of every plane: quad q of row `row`; a "
+          "thread past the plane's",
+          "  // quads owns none",
+          "  const int i = threadIdx.x, row = i / QX, q = i - row * QX;"]
+    if g.tma:
+        o += ["  // plane k of the window [a0 - H, a1 + H) lands in slot k % "
+              "SLOTS, whose barrier",
+              "  // full[k % SLOTS] counts its bytes; the last thread, in the "
+              "warp with the fewest quads,",
+              "  // asks for each plane AHEAD steps before its use and sees it "
+              "land a step before",
+              "  float* const slots = reinterpret_cast<float*>(smem4) + FEED;",
+              "  uint64_t* const full = reinterpret_cast<uint64_t*>(slots + "
+              "SLOTS * SLOT);",
+              "  const bool issuer = i == THREADS - 1;"]
+        if bf16:
+            o += ["  // a box's first column: x0 rounded down to 8 cells, xs "
+                  "cells before it",
+                  "  const int xs = x0 & 7;"]
+        o += ["  if (issuer)",
+              "    for (int k = 0; k < SLOTS; ++k) tma_bar_init(full + k);",
+              "  __syncthreads();  // the barriers are set up",
+              "  if (issuer) {  // the first AHEAD planes",
+              "    for (int k = 0; k < AHEAD && k < n0 + 2 * H; ++k)",
+              f"      request_plane(&map, slots, full, k, a0 - H, y0, {xb});",
+              "    tma_bar_wait(full, 0u);  // plane 0 has landed",
+              "  }",
+              "  __syncthreads();"]
+    o += ["  // w[t][k]: the thread's quad of level t (0: the source) in the "
          "k-th of its last WINDOW",
          "  // planes",
          "  float4 w[LEVELS][WINDOW];",
@@ -1280,10 +1524,29 @@ def _kernel_text_3d(g: Geometry, shard: bool, planes, beside):
          "  // to first, so that each reads the window of the level below "
          "before that moves on",
          "  for (int s = 0; s < n0 + 2 * H + LEVELS; ++s) {",
-         "    const bool feed = s < n0 + 2 * H;",
-         "    // request the plane now, stage it after the levels: its "
-         "latency hides",
-         "    if (feed) fetch_plane(src, a0 - H + s, y0, x0, st);"]
+         "    const bool feed = s < n0 + 2 * H;"]
+    if g.tma:
+        o += ["    // plane s + AHEAD, into the slot that plane s - 1 left "
+              "at the last barrier",
+              "    if (issuer && s + AHEAD < n0 + 2 * H)",
+              "      request_plane(&map, slots, full, s + AHEAD, a0 - H, y0, "
+              f"{xb});",
+              "    // plane s landed before the last barrier: read the "
+              "thread's quad now, stage it",
+              "    // after the levels",
+              "    Raw own;",
+              "    if (feed && i < PLANE_QUADS)"]
+        if bf16:
+            o += ["      own = *reinterpret_cast<const Raw*>(",
+                  "          reinterpret_cast<const T*>(slots + s % SLOTS * "
+                  "SLOT) + row * BX + xs + 4 * q);"]
+        else:
+            o += ["      own = reinterpret_cast<const Raw*>(slots + s % SLOTS "
+                  "* SLOT)[i];"]
+    else:
+        o += ["    // request the plane now, stage it after the levels: its "
+              "latency hides",
+              "    if (feed) fetch_plane(src, a0 - H + s, y0, x0, st);"]
     for t in range(L, 0, -1):
         y_first, rows, q_first, qw = g.level_region(t)
         o.append(f"    {{  // level {t} of {L}: rows [{y_first}, "
@@ -1327,11 +1590,18 @@ def _kernel_text_3d(g: Geometry, shard: bool, planes, beside):
         o.append("      }")
         o.append("    }")
     o.append("    if (feed && i < PLANE_QUADS) {")
-    o += push(0, "raw_to_f32(st[0])", "      ")
+    o += push(0, "raw_to_f32(own)" if g.tma else "raw_to_f32(st[0])",
+              "      ")
     o.append(f"      *reinterpret_cast<float4*>(smem + ((s + {woff}) % RING) "
              "* PLANE + 4 * i) =")
     o.append("          w[0][WRITE];")
     o.append("    }")
+    if g.tma:
+        o.append("    // the issuer sees plane s + 1 land; the barrier shows it "
+                 "to every thread")
+        o.append("    if (issuer && s + 1 < n0 + 2 * H)")
+        o.append("      tma_bar_wait(full + (s + 1) % SLOTS, (unsigned)((s + 1) "
+                 "/ SLOTS) & 1u);")
     o.append("    __syncthreads();")
     o.append("  }")
     o.append("}")

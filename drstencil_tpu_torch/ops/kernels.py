@@ -42,7 +42,8 @@ flags; a later process finds the library on disk; about 6 s per plan).
 started together; callers that know their plans ahead use it.  A failed
 build raises with the compiler's log; nothing falls back.
 :func:`plan_counters` counts the plan cache's disk hits, builds and seconds,
-and the plans it made or found that keep register windows.
+and the plans it made or found that keep register windows or feed their
+source planes by TMA.
 
 Each streaming kernel runs on float32 and on bfloat16 state: the bf16
 build loads as fp32, computes every level in fp32 and rounds once at the
@@ -53,7 +54,8 @@ Everything is loaded with ``ctypes`` through a plain C interface.
 Each wrapper dispatches on the tensors' device: CPU tensors go to the
 plain PyTorch version beside it (``*_ref``), CUDA tensors launch the
 kernel or raise.  Each wrapper's ``launches`` counts its kernel's launches
-(both dtypes) only.
+(both dtypes) only; a levels wrapper's ``maps_encoded`` counts the tensor
+maps its TMA-fed plans encoded (one a source buffer).
 """
 
 from __future__ import annotations
@@ -357,6 +359,8 @@ class PlanKernel:
                         self.build_log = f.read()
             if getattr(self.geometry, "window", False):
                 _COUNTERS.add(**{f"windowed_{self.geometry.ndim}d": 1})
+            if self.tma:
+                _COUNTERS.add(tma_3d=1)
             lib = ctypes.CDLL(self.path)
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.launch.argtypes = ([ptr, ptr] + [i32] * (2 * self.shard)
@@ -366,6 +370,21 @@ class PlanKernel:
             lib.error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self
+
+    @property
+    def tma(self) -> bool:
+        """Whether the text feeds its source planes by TMA
+        (``codegen.Geometry.tma``)."""
+        return getattr(self.geometry, "tma", False)
+
+    def maps_encoded(self) -> int:
+        """Tensor maps the loaded library has encoded in this process, one
+        a source buffer it has launched on (0 for a text without TMA)."""
+        if not (self.tma and self._lib):
+            return 0
+        count = self._lib.maps_encoded
+        count.restype = ctypes.c_longlong
+        return int(count())
 
     def launch(self, src_ptr: int, dst_ptr: int, store, stream: int) -> None:
         err = self._lib.launch(src_ptr, dst_ptr, *store, stream)
@@ -411,7 +430,7 @@ class _PlanCounters:
     def reset(self) -> None:
         with self._lock:
             self._counts = {"disk_hits": 0, "builds": 0, "plan_s": 0.0,
-                            "windowed_2d": 0, "windowed_3d": 0}
+                            "windowed_2d": 0, "windowed_3d": 0, "tma_3d": 0}
 
     def add(self, **by) -> None:
         with self._lock:
@@ -452,7 +471,8 @@ def plan_counters() -> dict:
     :func:`build_plans` (text, hash, ``nvcc``, ``dlopen``), each second
     counted once; ``windowed_2d`` and ``windowed_3d``, the plans of those
     builds and disk hits whose geometry keeps register windows
-    (``codegen.Geometry.window``)."""
+    (``codegen.Geometry.window``); ``tma_3d``, those whose text feeds its
+    source planes by TMA (``codegen.Geometry.tma``)."""
     return _COUNTERS.snapshot()
 
 
@@ -784,6 +804,15 @@ class LevelsKernel:
         # PlanKernel): a launch does not key the plan again; holding
         # ``taps`` keeps its id
         self._plans: dict = {}
+
+    @property
+    def maps_encoded(self) -> int:
+        """Tensor maps encoded by the TMA-fed plans this wrapper has
+        launched, counted by their C entries: one a source buffer, so two a
+        ping-pong pair however many launches (each plan's library counts
+        once, whichever wrappers share it)."""
+        plans = {id(p): p for _, p in self._plans.values()}
+        return sum(p.maps_encoded() for p in plans.values())
 
     def _launch(self, src, dst, taps, store, stream) -> None:
         """Launch on ``src``'s device, which is the current one: the plan is

@@ -58,23 +58,53 @@ static inline void probe_consumer_sync(int n) {
   static std::barrier<> consumers(n);
   consumers.arrive_and_wait();
 }
-// the tensor map as the array it describes; a box copy packs its rows, zero
-// outside the array, and counts every byte of the box
-struct CUtensorMap { const float* base; int N, rows, box_cols, box_rows; };
+// the tensor map as the array it describes, x first (a 2D map has one plane);
+// a box copy packs its rows, zero outside the array, and counts every byte of
+// the box
+struct CUtensorMap { const char* base; int elem; long long dims[3]; int box[3]; };
 static inline int probe_make_map(CUtensorMap* m, const float* in, int N, int rows, int box_cols, int box_rows) {
-  *m = CUtensorMap{in, N, rows, box_cols, box_rows};
+  *m = CUtensorMap{reinterpret_cast<const char*>(in), 4, {N, rows, 1}, {box_cols, box_rows, 1}};
   return 0;
+}
+static inline void emu_box_copy(void* dst, const CUtensorMap* m, int x0, int y0, int z0, uint64_t* bar) {
+  char* d = static_cast<char*>(dst);
+  const int e = m->elem;
+  for (int z = 0; z < m->box[2]; ++z)
+    for (int y = 0; y < m->box[1]; ++y)
+      for (int x = 0; x < m->box[0]; ++x) {
+        const long long gx = x0 + x, gy = y0 + y, gz = z0 + z;
+        char* to = d + ((size_t)(z * m->box[1] + y) * m->box[0] + x) * e;
+        if (gx >= 0 && gx < m->dims[0] && gy >= 0 && gy < m->dims[1] && gz >= 0 && gz < m->dims[2])
+          memcpy(to, m->base + ((gz * m->dims[1] + gy) * m->dims[0] + gx) * e, e);
+        else
+          memset(to, 0, e);
+      }
+  std::lock_guard<std::mutex> l(g_bar_mu);
+  EmuBar* b = emu_bar(bar);
+  b->tx -= m->box[0] * m->box[1] * m->box[2] * e;
+  emu_bar_settle(b);
 }
 static inline void probe_tensor_copy(void* dst, const CUtensorMap* m, int c0, int r0, uint64_t* bar) {
   if ((uintptr_t)dst % 16) { fprintf(stderr, "box copy to an unaligned address\n"); abort(); }
-  float* d = static_cast<float*>(dst);
-  for (int r = 0; r < m->box_rows; ++r)
-    for (int c = 0; c < m->box_cols; ++c) {
-      const int gr = r0 + r, gc = c0 + c;
-      d[r * m->box_cols + c] = gr >= 0 && gr < m->rows && gc >= 0 && gc < m->N ? m->base[(size_t)gr * m->N + gc] : 0.0f;
-    }
-  std::lock_guard<std::mutex> l(g_bar_mu);
-  EmuBar* b = emu_bar(bar);
-  b->tx -= m->box_cols * m->box_rows * 4;
-  emu_bar_settle(b);
+  emu_box_copy(dst, m, c0, r0, 0, bar);
+}
+// the plans' TMA feed (ops/codegen's windowed 3D text): the encoder refuses
+// what the driver's does (an address, a row or a plane stride, or a box row
+// that is no whole 16 bytes; a box wider than 256 cells), a box starts on a
+// whole 16 bytes of the array along x, and it lands 128-byte aligned
+static inline int tma_encode_3d(CUtensorMap* m, const void* base, int elem, const unsigned long long dims[3], const unsigned box[3]) {
+  if ((uintptr_t)base % 16 || dims[0] * elem % 16 || box[0] * elem % 16) return 1;
+  for (int a = 0; a < 3; ++a)
+    if (box[a] < 1 || box[a] > 256) return 1;
+  *m = CUtensorMap{static_cast<const char*>(base), elem, {(long long)dims[0], (long long)dims[1], (long long)dims[2]},
+                   {(int)box[0], (int)box[1], (int)box[2]}};
+  return 0;
+}
+static inline void tma_bar_init(uint64_t* bar) { probe_bar_init(bar); }
+static inline void tma_bar_expect(uint64_t* bar, unsigned bytes) { probe_bar_expect(bar, bytes); }
+static inline void tma_bar_wait(uint64_t* bar, unsigned parity) { probe_bar_wait(bar, parity); }
+static inline void tma_copy_3d(void* dst, const CUtensorMap* m, int x, int y, int z, uint64_t* bar) {
+  if ((uintptr_t)dst % 128) { fprintf(stderr, "box copy to an address not 128-byte aligned\n"); abort(); }
+  if ((long long)x * m->elem % 16) { fprintf(stderr, "box copy from x = %d, not on 16 bytes\n", x); abort(); }
+  emu_box_copy(dst, m, x, y, z, bar);
 }

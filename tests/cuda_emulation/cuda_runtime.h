@@ -50,7 +50,7 @@ using std::min;
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
 template <class K> static inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) { a->numRegs = 0; a->localSizeBytes = 0; return 0; }
 template <class K> static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 1; return 0; }
-alignas(16) static float g_smem[232448 / 4];
+alignas(128) static float g_smem[232448 / 4];
 template <class F> static void emu_launch(dim3 grid, dim3 block, F f) {
   const unsigned n = block.x * block.y * block.z;
   for (unsigned bz = 0; bz < grid.z; ++bz) for (unsigned by = 0; by < grid.y; ++by) for (unsigned bx = 0; bx < grid.x; ++bx) {

@@ -146,9 +146,18 @@ def check_text(cuda, plan, dims, dtype, shard):
     assert (c["THREADS"], c["MIN_BLOCKS"]) == (g.threads, g.min_blocks)
     assert "PREFETCH" not in c      # the staging depth is no constant to set
     assert c["SMEM_BYTES"] == g.smem_bytes == kernels.smem_bytes(plan, dims)
-    assert c["SMEM_BYTES"] == 4 * (2 * g.guard + kernels.n_buffers(plan, dims)
-                                   * g.ey * g.ex)
-    # a ring per level; windowed 2D plans add their staging rows
+    plane = g.ey * g.ex
+    if g.tma:
+        # the rings, then 128-byte slots, each with an 8-byte mbarrier
+        slots = kernels.n_buffers(plan, dims) - plan.levels * c["RING"]
+        rings = -(-(2 * g.guard + plan.levels * c["RING"] * plane) // 32) * 32
+        assert c["SMEM_BYTES"] == 4 * (rings + slots * (-(-plane // 32) * 32)
+                                       ) + 8 * slots
+    else:
+        assert c["SMEM_BYTES"] == 4 * (2 * g.guard + kernels.n_buffers(
+            plan, dims) * plane)
+    # a ring per level; windowed 2D plans add their staging rows, windowed
+    # 3D plans fed by TMA their slots
     staging = kernels.n_buffers(plan, dims) - plan.levels * c["RING"]
     # 2D: windowed where the windows fit; 3D: where they fit and free ring
     # planes
@@ -158,6 +167,11 @@ def check_text(cuda, plan, dims, dtype, shard):
     if g.window and g.vec and len(dims) == 2:
         assert staging == c["AHEAD"] + 1 == codegen.AHEAD_2D + 1
         assert "__pipeline_memcpy_async" in cuda and "fetch_plane" not in cuda
+    elif g.tma:
+        assert staging == c["AHEAD"] + 1 == codegen.AHEAD_3D + 1
+        assert "cp.async.bulk.tensor.3d" in cuda
+        assert "fetch_plane" not in cuda and "Raw st[" not in cuda
+        assert "__pipeline_memcpy_async" not in cuda
     else:
         assert staging == 0 and "AHEAD" not in c
         assert "__pipeline_memcpy_async" not in cuda
@@ -349,7 +363,9 @@ def test_every_plan_stages_ahead_and_prefetch_changes_nothing():
                  "stage_plane(", "w[0][2] = raw_to_f32(st[0]);")
     # the others (3D; deep 2D plans) request into registers before the
     # levels and stage after them; a windowed 3D plan (a star table) runs
-    # its levels last to first
+    # its levels last to first, its planes asked for by TMA AHEAD steps
+    # ahead, its quad read from the slot before the levels and staged
+    # after, the next plane seen to land before the barrier
     for name in ("3d27pt_box", "2d25pt_box"):
         spec3, _, an3, plan3 = plan_of(name)
         assert not codegen.geometry(plan3, spec3.dims).window
@@ -357,10 +373,14 @@ def test_every_plan_stages_ahead_and_prefetch_changes_nothing():
                      "fetch_plane(", "// level 1", f"// level {plan3.levels}",
                      "stage_plane(")
     spec3, _, an3, plan3 = plan_of("3d7pt_star")
-    assert codegen.geometry(plan3, spec3.dims).window
+    g3 = codegen.geometry(plan3, spec3.dims)
+    assert g3.window and g3.tma and g3.ahead == codegen.AHEAD_3D
     assert order(codegen.cuda_source(plan3, spec3.dims, "float32", False),
-                 "fetch_plane(", f"// level {plan3.levels}", "// level 1",
-                 "w[0][2] = raw_to_f32(st[0]);", "__syncthreads();")
+                 "request_plane(&map, slots, full, s + AHEAD",
+                 "own = reinterpret_cast<const Raw*>(slots + s % SLOTS",
+                 f"// level {plan3.levels}", "// level 1",
+                 "w[0][2] = raw_to_f32(own);",
+                 "tma_bar_wait(full + (s + 1) % SLOTS", "__syncthreads();")
     # the space collapses the knob with the other TPU-only ones, and keeps
     # tm: the segment
     rep = space.representative(KernelConfig(step=4, trapezoid=True,
@@ -412,9 +432,13 @@ def emulated(cuda, tmp_path):
     text = re.sub(r"(\w+)<<<(\w+), (\w+), \w+,\s*\(cudaStream_t\)stream>>>\(\s*",
                   r"EMU_LAUNCH(\1, \2, \3, ", cuda)
     assert "EMU_LAUNCH(stencil_kernel, grid, block, " in text
-    text = text.replace(
-        "extern __shared__ float4 smem4[];",
-        "float4* const smem4 = reinterpret_cast<float4*>(g_smem);")
+    # a TMA-fed text's copies and barriers: tests/cuda_emulation/bulk_copy.h
+    text = re.sub(r"// ---- TMA bulk copy and mbarrier \(PTX\) -+\n.*?"
+                  r"// ---- end of PTX -+\n", '#include "bulk_copy.h"\n',
+                  text, flags=re.S)
+    text = re.sub(
+        r"extern __shared__ (__align__\(128\) )?float4 smem4\[\];",
+        "float4* const smem4 = reinterpret_cast<float4*>(g_smem);", text)
     src_path, lib = tmp_path / "kernel.cc", tmp_path / "kernel.so"
     src_path.write_text(text)
     proc = subprocess.run(
