@@ -20,7 +20,7 @@ near the bytes side, so the kernel's job is to touch device memory about
 once and keep every level on chip without drowning in shared-memory
 loads, halo recompute or idle SMs.
 
-Design (:class:`Geometry` holds the numbers):
+Design (:func:`geometry` makes every choice once, in a :class:`Geometry`):
 
 - *Streamed along axis 0.*  A CTA owns a column of the grid — ``TY x TX``
   cells of (y, x) in 3D, a strip of ``TX`` columns in 2D — and a segment
@@ -43,52 +43,62 @@ Design (:class:`Geometry` holds the numbers):
   table in ``ops/stream.tap_table``'s sorted order from ``acc = 0`` —
   the arithmetic of the table-driven kernels this text replaced, cell
   for cell.
-- *Register windows.*  A 2D strip gives every thread one quad column
-  for all rows and levels.  Where ``levels * (2 * reach + 1)`` quads fit
-  ``WINDOW_REGS`` registers the thread also carries its own cells' last
-  ``2 * reach + 1`` rows of every level in registers (the levels then run
-  last to first within a step, so that level ``t`` reads level ``t - 1``'s
-  window before it moves on), and only the cells beside its quad come from
-  the rings: a 5-point star's level costs 2 shared loads per four cells.
-  A 3D thread owns one quad of the staged plane, the same on every plane
-  and at every level (where a level's region is smaller, the threads
-  outside it skip), and keeps its window of the source and of every level
-  but the last.  The taps on its own row read the window; the cells beside
-  its quad come from the neighbouring lanes' windows by warp shuffles
-  (from shared memory at a warp's two ends); only the rows above and below
-  are shared loads: a 7-point star's level costs two ``float4`` loads per
-  four cells.  Each level then writes to its ring not its newest plane but
-  the one the level above reads newest a step later, so a ring keeps only
-  the planes at the axis-0 offsets of the taps that leave the thread's
-  quad column, and the one being written: two planes for a star table,
-  whose column then widens (3d7pt_star ``fu4``: 32 x 64 where the rings
-  took 16 x 64).  A 3D plan is windowed where that frees ring planes (a
-  star, not a box or a cross, whose taps off the column span the whole
-  reach: there the windows would cost registers and free nothing) and its
-  windows, ``4 * levels * window_len`` registers, fit ``WINDOW_REGS``; all
-  of it is read from the tap table.  Deep or wide plans (2d25pt_box: 120
-  registers; 3d13pt_star at step 5) keep to the rings.
-- *Loads.*  Planes start on a multiple of four columns, so the source is
-  read and the result written as 16-byte quads (8 bytes of bf16) with
-  the domain's edge decided per quad; a grid whose width is not a
-  multiple of four falls back to cell-wise access.  Every plan stages
-  ahead.  A windowed 2D plan requests source rows ``AHEAD_2D`` steps ahead
-  with ``cp.async`` (out-of-domain quads zero-filled) into a small staging
-  ring in the state's own type, and each thread converts the quads it
-  requested on the way into the fp32 ring: a strip's row is only 2 KB, and
-  tens of KB must be in flight per SM to keep device memory busy.  A
-  windowed 3D plan (one CTA an SM, so no other CTA hides a plane's fetch)
-  whose rows are whole 16-byte pieces in either type gets its planes by
-  TMA: one thread asks for each staged plane as one box of a 3D tensor map
-  (the copy engine fills zeros outside the domain) ``AHEAD`` steps before
-  its use, into a ring of slots in the state's type, and waits on the
-  slot's mbarrier a step before; every thread then reads its quad from the
-  slot at the step's start (``_feed_3d``; the host encodes the map once a
-  source buffer).  Every other plan requests the next plane's quads into
-  registers before the step's levels and stages them after (a plane is 8
-  KB or more, and the rings leave no shared memory for more planes).  The
-  staging depth is not a knob: ``KernelConfig.prefetch`` is accepted and
-  changes nothing.
+- *Kinds: rings and register windows.*  A ring plan's threads share out
+  the quads of each level's region.  A windowed strip (2D, where
+  ``levels * (2 * reach + 1)`` quads fit ``WINDOW_REGS`` registers, and
+  every factor plan) gives every thread one quad column for all rows and
+  levels; the thread carries its own cells' last ``2 * reach + 1`` rows of
+  every level in registers (the levels then run last to first within a
+  step, so that level ``t`` reads level ``t - 1``'s window before it moves
+  on), and only the cells beside its quad come from the rings: a 5-point
+  star's level costs 2 shared loads per four cells.  A windowed 3D thread
+  owns one quad of the staged plane, the same on every plane and at every
+  level (where a level's region is smaller, the threads outside it skip),
+  and keeps its window of the source and of every level but the last.  The
+  taps on its own row read the window; the cells beside its quad come from
+  the neighbouring lanes' windows by warp shuffles (from shared memory at
+  a warp's two ends); only the rows above and below are shared loads: a
+  7-point star's level costs two ``float4`` loads per four cells.  Each
+  level then writes to its ring not its newest plane but the one the level
+  above reads newest a step later, so a ring keeps only the planes at the
+  axis-0 offsets of the taps that leave the thread's quad column, and the
+  one being written: two planes for a star table, whose column then widens
+  (3d7pt_star ``fu4``: 32 x 64 where the rings took 16 x 64).  A 3D plan is
+  windowed where that frees ring planes (a star, not a box or a cross,
+  whose taps off the column span the whole reach: there the windows would
+  cost registers and free nothing) and its windows, ``4 * levels *
+  window_len`` registers, fit ``WINDOW_REGS`` (``_window_3d``); deep or
+  wide plans (2d25pt_box: 120 registers; 3d13pt_star at step 5) keep to
+  the rings.
+- *Feeds.*  Planes start on a multiple of four columns, so the source is
+  read and the result written as 16-byte quads (8 bytes of bf16) with the
+  domain's edge decided per quad; a grid whose width is not a multiple of
+  four falls back to cell-wise access.  Source planes arrive by one of
+  three feeds (:class:`Feed`), chosen in :func:`geometry`:
+
+  - :class:`CpAsyncFeed`, for a windowed strip on whole quads: each thread
+    copies its quads ``AHEAD_2D`` rows ahead by ``cp.async`` into a staging
+    ring in the state's type (a strip's row is 2 KB, and tens of KB must be
+    in flight per SM to keep device memory busy);
+  - :class:`TmaFeed`, for a windowed 3D plan whose rows are whole 16-byte
+    pieces in both types (``_feed_3d``; one CTA an SM, so no other CTA
+    hides a fetch): one thread asks the copy engine for each plane as one
+    box of a 3D tensor map (zeros outside the domain) up to ``AHEAD_3D``
+    steps ahead, into slots behind mbarriers; each thread reads its quad;
+  - :class:`RegisterFeed`, for every other plan: each thread fetches its
+    quads of the next plane into registers before the levels and stages
+    them after (a plane is 8 KB or more; the rings leave no room for more).
+
+  The depth is not a knob: ``KernelConfig.prefetch`` changes nothing.
+- *One skeleton.*  ``_kernel_text`` writes the ``__global__`` kernel of
+  every plan, branching on the plan's kind; each feed writes every piece
+  of the text and of the shared memory that depends on it, which the
+  skeleton and :func:`cuda_source` put in their places.  Nothing outside
+  :func:`geometry` and the feeds branches on the feed.  :func:`geometry`
+  decides the column (the first whose shared memory fits
+  ``SMEM_TARGET``), the windows (``window_regs``, ``_window_3d``), the
+  feed, the threads, the launch bound (``_ctas_by_smem``,
+  ``_ctas_by_registers``) and the segment (``_segment``).
 - Every shape is a ``constexpr``; coefficients are float32 hexadecimal
   literals; no table is passed.  The interface is plain C: ``launch(src,
   dst[, s_lo, s_hi], stream)`` returns ``cudaGetLastError()``.
@@ -200,6 +210,434 @@ def _ceil_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _ctas_by_smem(smem_bytes: int, threads: int) -> int:
+    """CTAs an SM holds by shared memory and threads, at most 8."""
+    return max(1, min(SMEM_LIMIT // (smem_bytes + SMEM_RESERVED),
+                      2048 // threads, 8))
+
+
+def _ctas_by_registers(threads: int, regs: int) -> int:
+    """CTAs an SM holds by threads and the register estimate of a thread
+    with ``regs`` registers in windows, at most 8."""
+    return max(1, min(REGISTER_FILE // (threads * (
+        regs + REGS_BESIDE_WINDOWS)), 2048 // threads, 8))
+
+
+# -- the plane feeds (the design note's *Feeds*) -----------------------------
+
+def _coords(g) -> str:
+    """The arguments of a plane's local (0, 0)."""
+    return ("y0, " if g.ndim == 3 else "") + "x0"
+
+
+def _quad_at(g):
+    """The global row ``gy`` (3D) and first column ``gx`` of a thread's
+    ``i``-th quad of a plane whose local (0, 0) is ``(y0, x0)``."""
+    if g.ndim == 3:
+        return ["    const int row = i / QX, gy = y0 + row;",
+                "    const int gx = x0 + 4 * (i - row * QX);"]
+    return ["    const int gx = x0 + 4 * i;"]
+
+
+def _stage_fn(comment: str, name: str, arg: str, value: str):
+    """A helper that stages a thread's quads of a plane into the ring."""
+    head = f"__device__ __forceinline__ void {name}("
+    return [comment, head + "float* __restrict__ plane,",
+            " " * len(head) + arg + ") {",
+            "#pragma unroll",
+            "  for (int k = 0; k < STAGE; ++k) {",
+            "    const int i = (int)threadIdx.x + k * THREADS;",
+            "    if (i < PLANE_QUADS)",
+            "      *reinterpret_cast<float4*>(plane + 4 * i) = raw_to_f32("
+            f"{value});",
+            "  }", "}", ""]
+
+
+@dataclass(frozen=True)
+class Feed:
+    """How a step's source plane reaches the CTA (the design note's
+    *Feeds*), ``ahead`` planes ahead of its use into ``ahead + 1`` staging
+    planes or slots.  Its pieces: ``includes``, ``constants`` (whose
+    ``SMEM_BYTES`` is ``smem_bytes``), ``helpers``; in the kernel,
+    ``source``, ``align``, the ``prologue`` around the lines that name the
+    thread's quads (``mine``), ``request``, then ``stage`` (ring and strip
+    plans) or ``own`` (the thread's quad), ``end_step``; on the host,
+    ``host`` and ``launch``.  ``end`` is the window's staged extent."""
+
+    ahead: int = 0
+
+    includes = ("cuda_bf16.h", "cuda_runtime.h", "stddef.h")
+    source = "const T* __restrict__ src"
+    align = ""
+    host = ()
+    launch = ()
+    launch_source = "(const T*)src"
+
+    @property
+    def staging(self) -> int:
+        """fp32 planes of shared memory past the rings."""
+        return self.ahead + 1 if self.ahead else 0
+
+    def smem_bytes(self, rings: int, plane: int) -> int:
+        """A CTA's shared memory: ``rings`` floats (the levels' rings with
+        their guards) and the feed's for ``plane``-cell planes."""
+        return 4 * (rings + self.staging * plane)
+
+    def constants(self, g, bf16: bool):
+        return ["constexpr size_t SMEM_BYTES =",
+                "    (size_t)(2 * GUARD + LEVELS * RING * PLANE + STAGING) * "
+                "sizeof(float);"]
+
+    def end_step(self, end: str):
+        return []
+
+
+@dataclass(frozen=True)
+class RegisterFeed(Feed):
+    """Source planes fetched into registers a step ahead (*Feeds*)."""
+
+    own = "raw_to_f32(st[0])"
+    stage = ("      stage_plane(smem + (s % RING) * PLANE, st);",)
+
+    def constants(self, g, bf16: bool):
+        return ["constexpr int STAGING = 0;"] + super().constants(g, bf16)
+
+    def helpers(self, g, bf16: bool):
+        d3 = g.ndim == 3
+        row = "((size_t)g0 * M + gy) * N" if d3 else "(size_t)g0 * N"
+        o = ["// Request plane g0 of the source (0 outside the domain) into "
+             "registers.",
+             "__device__ __forceinline__ void fetch_plane(const T* "
+             f"__restrict__ src, int g0, {'int y0, ' if d3 else ''}int x0,",
+             "                                            "
+             "Raw (&st)[STAGE]) {",
+             f"  const bool in0 = g0 >= 0 && g0 < {'D' if d3 else 'M'};",
+             "#pragma unroll",
+             "  for (int k = 0; k < STAGE; ++k) {",
+             "    const int i = (int)threadIdx.x + k * THREADS;",
+             *_quad_at(g),
+             "    const bool in = in0 && i < PLANE_QUADS"
+             + (" && gy >= 0 && gy < M;" if d3 else ";"),
+             f"    st[k] = fetch_quad(in ? src + {row} : src, gx, in);",
+             "  }", "}", ""]
+        if not g.window3d:      # a windowed 3D thread stages its own quad
+            o += _stage_fn("// Stage the requested plane into a ring slot "
+                           "as fp32.", "stage_plane",
+                           "const Raw (&st)[STAGE]", "st[k]")
+        return o
+
+    def prologue(self, g, end: str, bf16: bool, mine):
+        return ["  Raw st[STAGE];"] + mine
+
+    def request(self, g, end: str, bf16: bool):
+        return ["    // request the plane now, stage it after the levels: its "
+                "latency hides", "    if (feed) fetch_plane(src, a0 - H + s, "
+                f"{_coords(g)}, st);"]
+
+
+REGISTERS = RegisterFeed()
+
+
+@dataclass(frozen=True)
+class CpAsyncFeed(Feed):
+    """Source rows copied ``ahead`` steps ahead by ``cp.async``, one copy
+    group a row, each thread its own quads (*Feeds*)."""
+
+    includes = ("cuda_bf16.h", "cuda_runtime.h", "cuda_pipeline.h",
+                "stddef.h")
+    own = "raw_to_f32(slot[q])"
+    stage = ("      // all but the AHEAD newest of this thread's copy groups "
+             "have landed",
+             "      __pipeline_wait_prior(AHEAD);",
+             "      const Raw* const slot = staging + (s % (AHEAD + 1)) * "
+             "PLANE_QUADS;",
+             "      stage_arrived(smem + (s % RING) * PLANE, slot);")
+
+    def constants(self, g, bf16: bool):
+        return [f"constexpr int AHEAD = {self.ahead};  // source planes "
+                "requested ahead of their use (cp.async)",
+                "constexpr int STAGING = (AHEAD + 1) * PLANE;  // their "
+                "staging planes, sized for fp32"] + super().constants(g, bf16)
+
+    def helpers(self, g, bf16: bool):
+        d3 = g.ndim == 3
+        row = "((size_t)g0 * M + gy) * N" if d3 else "(size_t)g0 * N"
+        return ["// Request plane g0 of the source (0 outside the domain) "
+                "into a staging plane,",
+                "// each thread the quads it will itself stage.",
+                "__device__ __forceinline__ void request_plane(const T* "
+                f"__restrict__ src, int g0, {'int y0, ' if d3 else ''}int x0,",
+                "                                              "
+                "Raw* __restrict__ slot) {",
+                f"  const bool in0 = g0 >= 0 && g0 < {'D' if d3 else 'M'};",
+                "#pragma unroll",
+                "  for (int k = 0; k < STAGE; ++k) {",
+                "    const int i = (int)threadIdx.x + k * THREADS;",
+                "    if (i >= PLANE_QUADS) continue;",
+                *_quad_at(g),
+                "    const bool in = in0 && "
+                + ("gy >= 0 && gy < M && " if d3 else "")
+                + "gx >= 0 && gx < N;",
+                "    // a quad outside the domain copies nothing and is "
+                "filled with zeros",
+                f"    __pipeline_memcpy_async(slot + i, in ? src + {row} + gx "
+                ": src,",
+                "                            sizeof(Raw), in ? 0 : "
+                "sizeof(Raw));",
+                "  }", "}", ""] + _stage_fn(
+            "// Stage the thread's own quads of an arrived plane into a ring "
+            "slot as fp32.", "stage_arrived", "const Raw* __restrict__ slot",
+            "slot[i]")
+
+    def prologue(self, g, end: str, bf16: bool, mine):
+        return ["  Raw* const staging = reinterpret_cast<Raw*>(",
+                "      smem + GUARD + LEVELS * RING * PLANE);",
+                "  // the first AHEAD planes of the window, one copy group "
+                "each", "  for (int s = 0; s < AHEAD; ++s) {",
+                f"    if (s < {end})",
+                f"      request_plane(src, a0 - H + s, {_coords(g)}, staging "
+                "+ s * PLANE_QUADS);",
+                "    __pipeline_commit();",
+                "  }"] + mine
+
+    def request(self, g, end: str, bf16: bool):
+        return ["    // request plane s + AHEAD now; plane s, requested AHEAD "
+                "steps ago, is staged",
+                "    // after the levels",
+                f"    if (s + AHEAD < {end})",
+                f"      request_plane(src, a0 - H + s + AHEAD, {_coords(g)},",
+                "                    staging + ((s + AHEAD) % (AHEAD + 1)) * "
+                "PLANE_QUADS);",
+                "    __pipeline_commit();"]
+
+
+# The TMA feed's device helpers and the host's encoder of a 3D tensor map,
+# between the markers that the tests' g++ emulation replaces with its own
+# (tests/cuda_emulation/bulk_copy.h); then request_plane, which asks for one
+# plane of a segment's window.
+_TMA_TEXT = r"""// ---- TMA bulk copy and mbarrier (PTX) ----------------------------------------
+#include <cuda.h>  // CUtensorMap; the CUDA driver API is reached through the runtime
+// Describe the (dims[2], dims[1], dims[0]) array at `base` of `elem`-byte cells (2: bf16,
+// 4: fp32) to the copy engine, in boxes of box[0] x box[1] x box[2] cells (x first),
+// unswizzled; a cell outside the array reads 0.  The encoder is the CUDA driver API's,
+// found through the runtime, so nothing links against libcuda.
+typedef CUresult (*encode_fn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+static int tma_encode_3d(CUtensorMap* map, const void* base, int elem,
+                         const unsigned long long dims[3], const unsigned box[3]) {
+  static encode_fn encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return (int)cudaErrorNotSupported;
+    encode = (encode_fn)fn;
+  }
+  const cuuint64_t size[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t strides[2] = {dims[0] * elem, dims[0] * dims[1] * elem};  // bytes
+  const cuuint32_t cells[3] = {box[0], box[1], box[2]};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+      const_cast<void*>(base), size, strides, cells, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Arm the barrier for one arrival a phase, and show it to the copy engine.
+__device__ __forceinline__ void tma_bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The one arrival of a phase, which expects `bytes` of copies to complete it.
+__device__ __forceinline__ void tma_bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Copy the box of `map` whose first cell is (x, y, z) into `dst` (128-byte aligned),
+// rows packed; its bytes are counted on `bar`.
+__device__ __forceinline__ void tma_copy_3d(void* dst, const CUtensorMap* map, int x, int y,
+                                            int z, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+         "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void tma_bar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+        " selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+// ---- end of PTX --------------------------------------------------------------
+
+// Ask the copy engine for plane k of the window, plane g0 + k of the source (0 outside
+// the domain), into slot k % SLOTS: one box, its bytes counted on that slot's barrier.
+__device__ __forceinline__ void request_plane(const CUtensorMap* map, float* slots,
+                                              uint64_t* full, int k, int g0, int y0, int x0) {
+  uint64_t* const bar = full + k % SLOTS;
+  tma_bar_expect(bar, BOX_BYTES);
+  tma_copy_3d(slots + k % SLOTS * SLOT, map, x0, y0, g0 + k, bar);
+}"""
+
+
+# The host's tensor maps of the source (a map holds its buffer's address);
+# maps_encoded counts the maps encoded.
+_MAP_CACHE_TEXT = r"""// The source's tensor map, encoded once a buffer and kept (a ping-pong pair needs two):
+// at most MAPS_KEPT, the oldest replaced first.
+constexpr int MAPS_KEPT = 16;
+static const void* g_map_src[MAPS_KEPT];
+static CUtensorMap g_maps[MAPS_KEPT];
+static long long g_maps_encoded = 0;
+static std::mutex g_maps_mutex;
+static int source_map(const void* src, CUtensorMap* map) {
+  std::lock_guard<std::mutex> lock(g_maps_mutex);
+  for (int k = 0; k < MAPS_KEPT; ++k)
+    if (g_map_src[k] == src) {
+      *map = g_maps[k];
+      return 0;
+    }
+  const int k = (int)(g_maps_encoded % MAPS_KEPT);
+  const unsigned long long dims[3] = {N, M, D};
+  const unsigned box[3] = {BX, EY, 1};
+  g_map_src[k] = nullptr;
+  const int err = tma_encode_3d(&g_maps[k], src, (int)sizeof(T), dims, box);
+  if (err) return err;
+  g_map_src[k] = src;
+  ++g_maps_encoded;
+  *map = g_maps[k];
+  return 0;
+}
+
+extern "C" long long maps_encoded() { return g_maps_encoded; }"""
+
+
+@dataclass(frozen=True)
+class TmaFeed(Feed):
+    """Source planes copied whole ``ahead`` steps ahead by TMA (*Feeds*);
+    each thread reads its own quad, so only a windowed 3D plan, whose
+    threads write the ring themselves, takes it (no ``stage``)."""
+
+    includes = ("cuda_bf16.h", "cuda_runtime.h", "stddef.h", "mutex")
+    source = "const __grid_constant__ CUtensorMap map"
+    align = "__align__(128) "
+    own = "raw_to_f32(own)"
+    host = tuple(_MAP_CACHE_TEXT.split("\n")) + ("",)
+    launch = ("  CUtensorMap map;",
+              "  err = (cudaError_t)source_map(src, &map);",
+              "  if (err != cudaSuccess) return (int)err;")
+    launch_source = "map"
+
+    @staticmethod
+    def slot_bytes(plane: int) -> int:
+        """A slot of a ``plane``-cell plane, rounded up to 128 bytes, and
+        its 8-byte mbarrier."""
+        return 4 * _ceil_to(plane, 32) + 8
+
+    def smem_bytes(self, rings: int, plane: int) -> int:
+        return 4 * _ceil_to(rings, 32) + self.staging * self.slot_bytes(plane)
+
+    def constants(self, g, bf16: bool):
+        o = [f"constexpr int AHEAD = {self.ahead};  // source planes "
+             "requested ahead of their use (TMA)",
+             "constexpr int SLOTS = AHEAD + 1;  // where they land, sized for "
+             "fp32",
+             "// a slot's floats and the first slot's offset: whole 128 "
+             "bytes, as a box lands",
+             "constexpr int SLOT = (PLANE + 31) / 32 * 32;",
+             "constexpr int FEED = (2 * GUARD + LEVELS * RING * PLANE + 31) / "
+             "32 * 32;"]
+        if bf16:
+            o += ["// a box starts on a whole 16 bytes of the source: at x0 "
+                  "rounded down to 8 cells,",
+                  "// so it is 8 cells wider than the staged plane",
+                  "constexpr int BX = EX + 8;"]
+        else:
+            o.append("constexpr int BX = EX;  // a box is a staged plane (x0 "
+                     "is a multiple of 4 cells)")
+        return o + ["constexpr unsigned BOX_BYTES = EY * BX * sizeof(T);",
+                    "// the rings, the slots, and an mbarrier a slot",
+                    "constexpr size_t SMEM_BYTES =",
+                    "    (size_t)(FEED + SLOTS * SLOT) * sizeof(float) + "
+                    "SLOTS * sizeof(uint64_t);"]
+
+    def helpers(self, g, bf16: bool):
+        return _TMA_TEXT.split("\n") + [""]
+
+    def prologue(self, g, end: str, bf16: bool, mine):
+        o = mine + [
+            "  // plane k of the window [a0 - H, a1 + H) lands in slot k % "
+            "SLOTS, whose barrier",
+            "  // full[k % SLOTS] counts its bytes; the last thread, in the "
+            "warp with the fewest quads,",
+            "  // asks for each plane AHEAD steps before its use and sees it "
+            "land a step before",
+            "  float* const slots = reinterpret_cast<float*>(smem4) + FEED;",
+            "  uint64_t* const full = reinterpret_cast<uint64_t*>(slots + "
+            "SLOTS * SLOT);",
+            "  const bool issuer = i == THREADS - 1;"]
+        if bf16:
+            o += ["  // a box's first column: x0 rounded down to 8 cells, xs "
+                  "cells before it",
+                  "  const int xs = x0 & 7;"]
+        return o + ["  if (issuer)",
+                    "    for (int k = 0; k < SLOTS; ++k) tma_bar_init(full + "
+                    "k);",
+                    "  __syncthreads();  // the barriers are set up",
+                    "  if (issuer) {  // the first AHEAD planes",
+                    f"    for (int k = 0; k < AHEAD && k < {end}; ++k)",
+                    "      request_plane(&map, slots, full, k, a0 - H, y0, "
+                    f"{'x0 - xs' if bf16 else 'x0'});",
+                    "    tma_bar_wait(full, 0u);  // plane 0 has landed",
+                    "  }",
+                    "  __syncthreads();"]
+
+    def request(self, g, end: str, bf16: bool):
+        o = ["    // plane s + AHEAD, into the slot that plane s - 1 left at "
+             "the last barrier",
+             f"    if (issuer && s + AHEAD < {end})",
+             "      request_plane(&map, slots, full, s + AHEAD, a0 - H, y0, "
+             f"{'x0 - xs' if bf16 else 'x0'});",
+             "    // plane s landed before the last barrier: read the "
+             "thread's quad now, stage it",
+             "    // after the levels",
+             "    Raw own;",
+             "    if (feed && i < PLANE_QUADS)"]
+        if bf16:
+            return o + ["      own = *reinterpret_cast<const Raw*>(",
+                        "          reinterpret_cast<const T*>(slots + s % "
+                        "SLOTS * SLOT) + row * BX + xs + 4 * q);"]
+        return o + ["      own = reinterpret_cast<const Raw*>(slots + s % "
+                    "SLOTS * SLOT)[i];"]
+
+    def end_step(self, end: str):
+        return ["    // the issuer sees plane s + 1 land; the barrier shows "
+                "it to every thread",
+                f"    if (issuer && s + 1 < {end})",
+                "      tma_bar_wait(full + (s + 1) % SLOTS, (unsigned)((s + "
+                "1) / SLOTS) & 1u);"]
+
+
 @dataclass(frozen=True)
 class Geometry:
     """How one plan's kernel cuts a grid of ``dims``.
@@ -220,14 +658,10 @@ class Geometry:
     the plane of its window that the level above reads newest a step later
     (offset ``dhi``), so that a ring keeps only the planes at the offsets
     ``[dlo, dhi]`` of the taps that leave the column, and the plane being
-    written (``_window_3d``).  ``ahead`` > 0
-    (windowed plans with 16-byte access) is the number
-    of source rows requested ahead by ``cp.async`` into ``ahead + 1``
-    staging rows (2D), or of source planes requested ahead by TMA into
-    ``ahead + 1`` slots (3D, ``tma``: ``_feed_3d``); 0 stages through
-    registers.  A ``factor`` plan (2D,
-    always windowed) keeps ``window_len`` rows of every level and stages
-    ``tail`` source rows past its segment's window."""
+    written (``_window_3d``).  ``feed`` is how the source planes arrive
+    (:class:`Feed`).  A ``factor`` plan (2D, always windowed) keeps
+    ``window_len`` rows of every level and stages ``tail`` source rows past
+    its segment's window."""
 
     dims: Tuple[int, ...]
     frame: int
@@ -242,7 +676,7 @@ class Geometry:
     min_blocks: int
     vec: bool
     window: bool = False
-    ahead: int = 0
+    feed: Feed = REGISTERS
     factor: bool = False
     wlen: int = 0
     dhi: int = 0
@@ -291,28 +725,27 @@ class Geometry:
         return _ceil_to(self.reach, QUAD)
 
     @property
-    def window_planes(self) -> int:
-        """fp32 planes of one CTA in shared memory: the levels' rings and
-        the staging planes (sized for fp32 whatever the state's type)."""
-        return self.levels * self.ring + (self.ahead + 1 if self.ahead else 0)
+    def ahead(self) -> int:
+        """Source planes the feed requests ahead of their use."""
+        return self.feed.ahead
 
     @property
     def tma(self) -> bool:
-        """Whether the source planes arrive by TMA (a windowed 3D plan
-        with ``ahead`` > 0): each lands whole in a slot of its own, the
-        slots after the rings, each a plane rounded up to 128 bytes, and
-        an 8-byte mbarrier a slot after them."""
-        return self.window3d and self.ahead > 0
+        """Whether the source planes arrive by TMA (:class:`TmaFeed`)."""
+        return isinstance(self.feed, TmaFeed)
+
+    @property
+    def window_planes(self) -> int:
+        """fp32 planes of one CTA in shared memory: the levels' rings and
+        the feed's staging planes (sized for fp32 whatever the state's
+        type)."""
+        return self.levels * self.ring + self.feed.staging
 
     @property
     def smem_bytes(self) -> int:
-        if self.tma:
-            feed = _ceil_to(2 * self.guard + self.levels * self.ring
-                            * self.plane_cells, 32)
-            return (4 * (feed + (self.ahead + 1)
-                         * _ceil_to(self.plane_cells, 32))
-                    + 8 * (self.ahead + 1))
-        return 4 * (2 * self.guard + self.window_planes * self.plane_cells)
+        return self.feed.smem_bytes(
+            2 * self.guard + self.levels * self.ring * self.plane_cells,
+            self.plane_cells)
 
     @property
     def warmup(self) -> int:
@@ -329,8 +762,7 @@ class Geometry:
 
     @property
     def n_columns(self) -> int:
-        return int(np.prod([-(-d // t) for d, t
-                            in zip(self.dims[1:], self.tile[1:])]))
+        return int(np.prod(self.grid[:-1]))
 
     @property
     def grid(self) -> Tuple[int, ...]:
@@ -341,8 +773,7 @@ class Geometry:
     @property
     def ctas_per_sm(self) -> int:
         """CTAs an SM holds by shared memory and threads, at most 8."""
-        return max(1, min(SMEM_LIMIT // (self.smem_bytes + SMEM_RESERVED),
-                          2048 // self.threads, 8))
+        return _ctas_by_smem(self.smem_bytes, self.threads)
 
     def level_region(self, t: int):
         """(first row, rows, first quad, quads) of the plane cells level
@@ -440,27 +871,27 @@ def _window_3d(plan, ey: int, ex: int):
 
 
 def _feed_3d(dims, ey: int, ex: int, threads: int, regs: int,
-             rings: int) -> int:
-    """Source planes a windowed 3D plan requests ahead by TMA, 0 where it
-    fetches each into registers a step ahead.  A staged plane, ``ey x ex``
-    cells, is one box of the source (8 cells wider in bf16, whose boxes
-    start on 16 bytes), so its rows and the grid's must be whole 16-byte
-    pieces in either state type (``ex`` and the grid's width multiples of
-    8).  Its slots (``Geometry.tma``) take the shared
-    memory that the rings (``rings`` floats with their guards) leave to
-    each of the CTAs an SM holds by their registers (``regs`` a thread in
-    windows), so that the feed costs no CTA an SM; at most ``AHEAD_3D``
-    planes, and at least one.  The slots are a power of two, so that a
-    plane's slot is a mask of its index (on the card 4 slots ran 4-7%
-    faster than 3, 5 or 9 at four levels)."""
+             rings: int) -> Feed:
+    """The feed of a windowed 3D plan: a :class:`TmaFeed`, or the
+    :class:`RegisterFeed` where TMA does not fit.  A staged plane, ``ey x
+    ex`` cells, is one box of the source (8 cells wider in bf16, whose
+    boxes start on 16 bytes), so its rows and the grid's must be whole
+    16-byte pieces in either state type (``ex`` and the grid's width
+    multiples of 8).  Its slots take the shared memory that the rings
+    (``rings`` floats with their guards) leave to each of the CTAs an SM
+    holds by their registers (``regs`` a thread in windows), so that the
+    feed costs no CTA an SM; at most ``AHEAD_3D`` planes, and at least
+    one.  The slots are a power of two, so that a plane's slot is a mask
+    of its index (on the card 4 slots ran 4-7% faster than 3, 5 or 9 at
+    four levels)."""
     if dims[-1] % 8 or ex % 8 or max(ey, ex + 8) > TMA_BOX:
-        return 0
-    ctas = max(1, min(REGISTER_FILE // (threads * (
-        regs + REGS_BESIDE_WINDOWS)), 2048 // threads, 8))
+        return REGISTERS
+    ctas = _ctas_by_registers(threads, regs)
     budget = SMEM_LIMIT if ctas == 1 else SMEM_LIMIT // ctas - SMEM_RESERVED
     fit = min(AHEAD_3D + 1, (budget - 4 * _ceil_to(rings, 32))
-              // (4 * _ceil_to(ey * ex, 32) + 8))
-    return (1 << (fit.bit_length() - 1)) - 1 if fit >= 2 else 0
+              // TmaFeed.slot_bytes(ey * ex))
+    return (TmaFeed((1 << (fit.bit_length() - 1)) - 1) if fit >= 2
+            else REGISTERS)
 
 
 def _column_entries(dims, frame: int):
@@ -524,29 +955,33 @@ def geometry(plan, dims, sms: int = SM_COUNT, segment=None,
     # WINDOW_REGS: step 3 and 4)
     in_regs = ndim == 2 and window_regs(plan) <= WINDOW_REGS
     window = in_regs or factor
-    ahead = AHEAD_2D if window and vec else 0
+    # the feed: a windowed strip's rows by cp.async where they are whole
+    # quads, a windowed 3D plan's by _feed_3d, every other by registers
+    feed = CpAsyncFeed(AHEAD_2D) if window and vec else REGISTERS
+
+    def rings(ey, ex, ring):
+        return 2 * guard + L * ring * ey * ex   # floats, with the guards
 
     def smem(ey, ex):
-        return 4 * (2 * guard + (L * ring + (ahead + 1 if ahead else 0))
-                    * ey * ex)
+        return feed.smem_bytes(rings(ey, ex, ring), ey * ex)
 
     entries = _column_entries(dims, H)
+    # the asked column: of two entries with its name, the wider
+    named = [e for e in entries if e[0] == column]
+    named = named and [max(named, key=lambda e: e[1])]
     # 3D: register windows where a column's fit (_window_3d), the widest
     # first; the column the rings fit otherwise
     win3 = None
     if ndim == 3:
-        named = [e for e in entries if column is None or e[0] == column]
-        if column is not None and named:
-            named = [max(named, key=lambda e: e[1])]
-        for _, _, (ey3, ex3) in named:
+        for _, _, (ey3, ex3) in (entries if column is None else named):
             w = _window_3d(plan, ey3, ex3)
-            if w and 4 * (2 * guard + L * w[2] * ey3 * ex3) <= SMEM_LIMIT:
+            if w and 4 * rings(ey3, ex3, w[2]) <= SMEM_LIMIT:
                 win3 = (ey3, ex3) + w
                 break
     if win3:
         ey, ex, threads, wlen, ring, dhi = win3
-        ahead = _feed_3d(dims, ey, ex, threads, QUAD * L * wlen,
-                         2 * guard + L * ring * ey * ex)
+        feed = _feed_3d(dims, ey, ex, threads, QUAD * L * wlen,
+                        rings(ey, ex, ring))
     elif column is None:
         shapes = [e[2] for e in entries]
         fits = ([s for s in shapes if smem(*s) <= SMEM_TARGET]
@@ -556,13 +991,12 @@ def geometry(plan, dims, sms: int = SM_COUNT, segment=None,
                 f"frame {H} is too wide for a shared-memory window")
         ey, ex = fits[0]
     else:
-        named = [e for e in entries if e[0] == column]
         if not named:
             raise ValueError(
                 f"column ch={column} names no "
                 f"{'strip' if ndim == 2 else 'column'} of this plan: one of "
                 f"{sorted({e[0] for e in entries})}")
-        ey, ex = max(named, key=lambda e: e[1])[2]
+        ey, ex = named[0][2]
         if smem(ey, ex) > SMEM_LIMIT:
             raise ValueError(
                 f"column ch={column}: its rings take {smem(ey, ex)} bytes of "
@@ -575,14 +1009,14 @@ def geometry(plan, dims, sms: int = SM_COUNT, segment=None,
                       THREADS_3D if ndim == 3 else STRIP_2D[0] // QUAD)
     g = Geometry(dims=dims, frame=H, reach=r, levels=L, tile=(1,) + column,
                  hx=hx, ey=ey, ex=ex, ring=ring, threads=threads,
-                 min_blocks=1, vec=vec, ahead=ahead,
+                 min_blocks=1, vec=vec, feed=feed,
                  window=window or bool(win3), factor=factor, wlen=wlen,
                  dhi=dhi)
     assert not window or quads <= threads
     if win3:
         # registers, not shared memory, decide how many CTAs an SM holds
-        min_blocks = max(1, min(g.ctas_per_sm, REGISTER_FILE // (threads * (
-            QUAD * L * wlen + REGS_BESIDE_WINDOWS))))
+        min_blocks = min(g.ctas_per_sm,
+                         _ctas_by_registers(threads, QUAD * L * wlen))
     else:
         min_blocks = min(g.ctas_per_sm,
                          2 if ndim == 3 or (factor and not in_regs) else 4)
@@ -615,7 +1049,7 @@ def _row_loads(rid: int, base: str, off: int, dxs, own: str = None):
         need = [j for j in need if j not in expr]
     for blk in sorted({j // QUAD for j in need}):
         inside = [j for j in need if j // QUAD == blk]
-        tag = f"{rid}_{'m' if blk < 0 else 'p'}{abs(blk)}"
+        tag = f"{rid}_{_signed(blk)}"
         if len(inside) == 1:
             j = inside[0]
             lines.append(f"  const float s{tag} = {base}[at + ({off + j})];")
@@ -628,20 +1062,20 @@ def _row_loads(rid: int, base: str, off: int, dxs, own: str = None):
     return lines, expr
 
 
-def _plane_name(d0: int) -> str:
-    return f"b_{'m' if d0 < 0 else 'p'}{abs(d0)}"
+def _signed(n: int) -> str:
+    """``n`` in a C name: ``m1``, ``p0``, ``p2``."""
+    return f"{'m' if n < 0 else 'p'}{abs(n)}"
 
 
-def _beside_name(d0: int, j: int) -> str:
-    return (f"x_{'m' if d0 < 0 else 'p'}{abs(d0)}_"
-            f"{'m' if j < 0 else 'p'}{abs(j)}")
+def _plane_name(d0: int, prefix: str = "b") -> str:
+    return f"{prefix}_{_signed(d0)}"
 
 
 def _own_row_3d(rid: str, base: str, d0: int, dxs, own: str, beside):
     """Loads of a windowed 3D thread's own row at axis-0 offset ``d0``: its
     quad ``own`` from its window, and each cell ``j`` beside it from the
     window of the lane ``j // 4`` quads away by a warp shuffle done before
-    the call (``_kernel_text_3d``), named ``x_<d0>_<j>`` and appended to
+    the call (``_kernel_text``), named ``x_<d0>_<j>`` and appended to
     ``beside`` as (name, d0, component, lanes away); a lane whose neighbour
     lies in another warp loads the cell from shared memory instead.  A quad
     at a row's start or end takes a neighbour of another row there, for
@@ -654,10 +1088,10 @@ def _own_row_3d(rid: str, base: str, d0: int, dxs, own: str, beside):
         if j in expr:
             continue
         m = j // QUAD
-        name = _beside_name(d0, j)
+        name = f"x_{_signed(d0)}_{_signed(j)}"
         beside.append((name, d0, "xyzw"[j - QUAD * m], m))
         far = f"lane < {-m}" if m < 0 else f"lane >= {32 - m}"
-        tag = f"{rid}_{'m' if j < 0 else 'p'}{abs(j)}"
+        tag = f"{rid}_{_signed(j)}"
         lines.append(f"  const float s{tag} = {far} ? {base}[at + ({j})] : "
                      f"{name};")
         expr[j] = f"s{tag}"
@@ -812,14 +1246,8 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
              f"{QUAD} outputs per thread along x,")
     o.append("// every shape a constant and the taps unrolled: no table is "
              "passed.")
-    o.append("#include <cuda_bf16.h>")
-    o.append("#include <cuda_runtime.h>")
-    if g.ahead and not g.tma:
-        o.append("#include <cuda_pipeline.h>")
-    o.append("#include <stddef.h>")
-    if g.tma:
-        o.append("#include <mutex>")
-    o.append("")
+    feed = g.feed
+    o += [f"#include <{h}>" for h in feed.includes] + [""]
     o.append(f"typedef {'__nv_bfloat16' if bf16 else 'float'} T;"
              "  // the state's storage type")
     o.append("constexpr int " + ", ".join(
@@ -854,7 +1282,6 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
                  "the level above reads")
         o.append("// newest a step later")
         o.append(f"constexpr int WRITE = {g.window_write};")
-        o.append("static_assert(STAGE == 1, \"one quad per thread\");")
     elif g.window:
         o.append("// a thread owns quad threadIdx.x of every row and keeps "
                  "each level's last WINDOW")
@@ -871,133 +1298,15 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
             o.append("constexpr int TAIL = 1;")
         else:
             o.append("constexpr int WINDOW = 2 * REACH + 1;")
+    if g.window:
         o.append("static_assert(STAGE == 1, \"one quad per thread\");")
-    if g.tma:
-        o.append(f"constexpr int AHEAD = {g.ahead};  // source planes "
-                 "requested ahead of their use (TMA)")
-        o.append("constexpr int SLOTS = AHEAD + 1;  // where they land, "
-                 "sized for fp32")
-        o.append("// a slot's floats and the first slot's offset: whole 128 "
-                 "bytes, as a box lands")
-        o.append("constexpr int SLOT = (PLANE + 31) / 32 * 32;")
-        o.append("constexpr int FEED = (2 * GUARD + LEVELS * RING * PLANE + "
-                 "31) / 32 * 32;")
-        if bf16:
-            o.append("// a box starts on a whole 16 bytes of the source: at "
-                     "x0 rounded down to 8 cells,")
-            o.append("// so it is 8 cells wider than the staged plane")
-            o.append("constexpr int BX = EX + 8;")
-        else:
-            o.append("constexpr int BX = EX;  // a box is a staged plane (x0 "
-                     "is a multiple of 4 cells)")
-        o.append("constexpr unsigned BOX_BYTES = EY * BX * sizeof(T);")
-        o.append("// the rings, the slots, and an mbarrier a slot")
-        o.append("constexpr size_t SMEM_BYTES =")
-        o.append("    (size_t)(FEED + SLOTS * SLOT) * sizeof(float) + "
-                 "SLOTS * sizeof(uint64_t);")
-    else:
-        if g.ahead:
-            o.append(f"constexpr int AHEAD = {g.ahead};  // source planes "
-                     "requested ahead of their use (cp.async)")
-            o.append("constexpr int STAGING = (AHEAD + 1) * PLANE;  // their "
-                     "staging planes, sized for fp32")
-        else:
-            o.append("constexpr int STAGING = 0;")
-        o.append("constexpr size_t SMEM_BYTES =")
-        o.append("    (size_t)(2 * GUARD + LEVELS * RING * PLANE + STAGING) * "
-                 "sizeof(float);")
+    o += feed.constants(g, bf16)
     o.append(f"static_assert(SMEM_BYTES == {g.smem_bytes}, \"geometry\");")
     o.append("")
     o += _io_text(bf16, g.vec)
     o.append("")
-    if g.tma:
-        o += _TMA_TEXT.split("\n")
-        o.append("")
-    plane_args = "int g0" + (", int y0" if d3 else "") + ", int x0"
-    row_expr = ("((size_t)g0 * M + gy) * N" if d3 else "(size_t)g0 * N")
-    if not g.ahead:
-        o.append("// Request plane g0 of the source (0 outside the domain) "
-                 "into registers.")
-        o.append("__device__ __forceinline__ void fetch_plane("
-                 f"const T* __restrict__ src, {plane_args},")
-        o.append("                                            "
-                 "Raw (&st)[STAGE]) {")
-        o.append(f"  const bool in0 = g0 >= 0 && g0 < {A0};")
-        o.append("#pragma unroll")
-        o.append("  for (int k = 0; k < STAGE; ++k) {")
-        o.append("    const int i = (int)threadIdx.x + k * THREADS;")
-        if d3:
-            o.append("    const int row = i / QX, gy = y0 + row;")
-            o.append("    const int gx = x0 + 4 * (i - row * QX);")
-            o.append("    const bool in = in0 && i < PLANE_QUADS && gy >= 0 && "
-                     "gy < M;")
-        else:
-            o.append("    const int gx = x0 + 4 * i;")
-            o.append("    const bool in = in0 && i < PLANE_QUADS;")
-        o.append(f"    st[k] = fetch_quad(in ? src + {row_expr} : src, gx, in);")
-        o.append("  }")
-        o.append("}")
-        o.append("")
-    if not g.ahead and not g.window3d:
-        o.append("// Stage the requested plane into a ring slot as fp32.")
-        o.append("__device__ __forceinline__ void stage_plane("
-                 "float* __restrict__ plane,")
-        o.append("                                            "
-                 "const Raw (&st)[STAGE]) {")
-        o.append("#pragma unroll")
-        o.append("  for (int k = 0; k < STAGE; ++k) {")
-        o.append("    const int i = (int)threadIdx.x + k * THREADS;")
-        o.append("    if (i < PLANE_QUADS)")
-        o.append("      *reinterpret_cast<float4*>(plane + 4 * i) = "
-                 "raw_to_f32(st[k]);")
-        o.append("  }")
-        o.append("}")
-        o.append("")
-    if g.ahead and not g.tma:
-        o.append("// Request plane g0 of the source (0 outside the domain) "
-                 "into a staging plane,")
-        o.append("// each thread the quads it will itself stage.")
-        o.append("__device__ __forceinline__ void request_plane("
-                 f"const T* __restrict__ src, {plane_args},")
-        o.append("                                              "
-                 "Raw* __restrict__ slot) {")
-        o.append(f"  const bool in0 = g0 >= 0 && g0 < {A0};")
-        o.append("#pragma unroll")
-        o.append("  for (int k = 0; k < STAGE; ++k) {")
-        o.append("    const int i = (int)threadIdx.x + k * THREADS;")
-        o.append("    if (i >= PLANE_QUADS) continue;")
-        if d3:
-            o.append("    const int row = i / QX, gy = y0 + row;")
-            o.append("    const int gx = x0 + 4 * (i - row * QX);")
-            o.append("    const bool in = in0 && gy >= 0 && gy < M && gx >= 0 "
-                     "&& gx < N;")
-        else:
-            o.append("    const int gx = x0 + 4 * i;")
-            o.append("    const bool in = in0 && gx >= 0 && gx < N;")
-        o.append("    // a quad outside the domain copies nothing and is "
-                 "filled with zeros")
-        o.append(f"    __pipeline_memcpy_async(slot + i, in ? src + {row_expr}"
-                 " + gx : src,")
-        o.append("                            sizeof(Raw), in ? 0 : "
-                 "sizeof(Raw));")
-        o.append("  }")
-        o.append("}")
-        o.append("")
-        o.append("// Stage the thread's own quads of an arrived plane into a "
-                 "ring slot as fp32.")
-        o.append("__device__ __forceinline__ void stage_arrived("
-                 "float* __restrict__ plane,")
-        o.append("                                              "
-                 "const Raw* __restrict__ slot) {")
-        o.append("#pragma unroll")
-        o.append("  for (int k = 0; k < STAGE; ++k) {")
-        o.append("    const int i = (int)threadIdx.x + k * THREADS;")
-        o.append("    if (i < PLANE_QUADS)")
-        o.append("      *reinterpret_cast<float4*>(plane + 4 * i) = "
-                 "raw_to_f32(slot[i]);")
-        o.append("  }")
-        o.append("}")
-        o.append("")
+    o += feed.helpers(g, bf16)
+    beside = []
     if g.factor:
         quad_text, by_parity = _factor_quads(plan, g)
 
@@ -1013,167 +1322,39 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
                     planes)
     o += quad_text
     o.append("")
-    if g.window3d:
-        o += _kernel_text_3d(g, shard, planes, beside, bf16)
-    else:
-        o += _kernel_text(g, shard, level_call)
+    o += _kernel_text(g, shard, bf16, level_call, beside)
     o.append("")
-    o.append('extern "C" const char* error_string(int err) {')
-    o.append("  return cudaGetErrorString((cudaError_t)err);")
-    o.append("}")
-    o.append("")
-    if g.tma:
-        o += _MAP_CACHE_TEXT.split("\n")
-        o.append("")
-    rng = ", int s_lo, int s_hi" if shard else ""
-    o.append(f'extern "C" int launch(const void* src, void* dst{rng}, '
-             "void* stream) {")
-    if shard:
-        o.append(f"  if (s_lo < H || s_hi > {A0} - H) "
-                 "return (int)cudaErrorInvalidValue;")
-        o.append("  if (s_lo >= s_hi) return (int)cudaSuccess;"
-                 "  // nothing to store")
-    o.append("  cudaError_t err = cudaFuncSetAttribute(")
-    o.append("      stencil_kernel, "
-             "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);")
-    o.append("  if (err != cudaSuccess) return (int)err;")
-    if g.tma:
-        o.append("  CUtensorMap map;")
-        o.append("  err = (cudaError_t)source_map(src, &map);")
-        o.append("  if (err != cudaSuccess) return (int)err;")
-    o.append("  const dim3 block(THREADS);")
-    o.append("  const dim3 grid(" + ", ".join(map(str, g.grid)) + ");"
-             "  // columns, then segments")
-    o.append("  stencil_kernel<<<grid, block, SMEM_BYTES, "
-             "(cudaStream_t)stream>>>(")
-    source = "map" if g.tma else "(const T*)src"
-    o.append(f"      {source}, (T*)dst" + (", s_lo, s_hi" if shard else "")
-             + ");")
-    o.append("  return (int)cudaGetLastError();")
-    o.append("}")
+    checks = [f"  if (s_lo < H || s_hi > {A0} - H) return (int)"
+              "cudaErrorInvalidValue;",
+              "  if (s_lo >= s_hi) return (int)cudaSuccess;  // nothing to "
+              "store"] if shard else []
+    o += _host_text("stencil_kernel", g.grid, "columns, then segments",
+                    f"{feed.launch_source}, (T*)dst"
+                    + (", s_lo, s_hi" if shard else ""),
+                    ", int s_lo, int s_hi" if shard else "", checks,
+                    feed.host, feed.launch)
     return "\n".join(o)
 
 
-# The TMA feed's device helpers and the host's encoder of a 3D tensor map,
-# between the markers that the tests' g++ emulation replaces with its own
-# (tests/cuda_emulation/bulk_copy.h); then request_plane, which asks for one
-# plane of a segment's window.
-_TMA_TEXT = r"""// ---- TMA bulk copy and mbarrier (PTX) ----------------------------------------
-#include <cuda.h>  // CUtensorMap; the CUDA driver API is reached through the runtime
-// Describe the (dims[2], dims[1], dims[0]) array at `base` of `elem`-byte cells (2: bf16,
-// 4: fp32) to the copy engine, in boxes of box[0] x box[1] x box[2] cells (x first),
-// unswizzled; a cell outside the array reads 0.  The encoder is the CUDA driver API's,
-// found through the runtime, so nothing links against libcuda.
-typedef CUresult (*encode_fn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-static int tma_encode_3d(CUtensorMap* map, const void* base, int elem,
-                         const unsigned long long dims[3], const unsigned box[3]) {
-  static encode_fn encode = nullptr;
-  if (!encode) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || !fn)
-      return (int)cudaErrorNotSupported;
-    encode = (encode_fn)fn;
-  }
-  const cuuint64_t size[3] = {dims[0], dims[1], dims[2]};
-  const cuuint64_t strides[2] = {dims[0] * elem, dims[0] * dims[1] * elem};  // bytes
-  const cuuint32_t cells[3] = {box[0], box[1], box[2]};
-  const cuuint32_t steps[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-      const_cast<void*>(base), size, strides, cells, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Arm the barrier for one arrival a phase, and show it to the copy engine.
-__device__ __forceinline__ void tma_bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// The one arrival of a phase, which expects `bytes` of copies to complete it.
-__device__ __forceinline__ void tma_bar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Copy the box of `map` whose first cell is (x, y, z) into `dst` (128-byte aligned),
-// rows packed; its bytes are counted on `bar`.
-__device__ __forceinline__ void tma_copy_3d(void* dst, const CUtensorMap* map, int x, int y,
-                                            int z, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
-         "r"(smem_addr(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void tma_bar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned addr = smem_addr(bar);
-  unsigned done;
-  do {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
-        " selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
-}
-// ---- end of PTX --------------------------------------------------------------
-
-// Ask the copy engine for plane k of the window, plane g0 + k of the source (0 outside
-// the domain), into slot k % SLOTS: one box, its bytes counted on that slot's barrier.
-__device__ __forceinline__ void request_plane(const CUtensorMap* map, float* slots,
-                                              uint64_t* full, int k, int g0, int y0, int x0) {
-  uint64_t* const bar = full + k % SLOTS;
-  tma_bar_expect(bar, BOX_BYTES);
-  tma_copy_3d(slots + k % SLOTS * SLOT, map, x0, y0, g0 + k, bar);
-}"""
-
-
-# The host's tensor maps of the source, one a buffer: a map holds its
-# buffer's address, so a ping-pong pair needs two, kept across launches;
-# maps_encoded counts the maps encoded.
-_MAP_CACHE_TEXT = r"""// The source's tensor map, encoded once a buffer and kept (a ping-pong pair needs two):
-// at most MAPS_KEPT, the oldest replaced first.
-constexpr int MAPS_KEPT = 16;
-static const void* g_map_src[MAPS_KEPT];
-static CUtensorMap g_maps[MAPS_KEPT];
-static long long g_maps_encoded = 0;
-static std::mutex g_maps_mutex;
-static int source_map(const void* src, CUtensorMap* map) {
-  std::lock_guard<std::mutex> lock(g_maps_mutex);
-  for (int k = 0; k < MAPS_KEPT; ++k)
-    if (g_map_src[k] == src) {
-      *map = g_maps[k];
-      return 0;
-    }
-  const int k = (int)(g_maps_encoded % MAPS_KEPT);
-  const unsigned long long dims[3] = {N, M, D};
-  const unsigned box[3] = {BX, EY, 1};
-  g_map_src[k] = nullptr;
-  const int err = tma_encode_3d(&g_maps[k], src, (int)sizeof(T), dims, box);
-  if (err) return err;
-  g_map_src[k] = src;
-  ++g_maps_encoded;
-  *map = g_maps[k];
-  return 0;
-}
-
-extern "C" long long maps_encoded() { return g_maps_encoded; }"""
+def _host_text(kernel: str, grid, what: str, args: str, params: str = "",
+               checks=(), host=(), setup=()):
+    """The host's entry points: ``error_string``, then ``host``, then
+    ``launch(src, dst{params}, stream)``, which runs ``checks``, lets
+    ``kernel`` take its shared memory, runs ``setup`` and launches it with
+    ``args`` on ``grid`` (``what`` its CTAs are)."""
+    return ['extern "C" const char* error_string(int err) {',
+            "  return cudaGetErrorString((cudaError_t)err);", "}", "", *host,
+            f'extern "C" int launch(const void* src, void* dst{params}, '
+            "void* stream) {", *checks,
+            "  cudaError_t err = cudaFuncSetAttribute(",
+            f"      {kernel}, cudaFuncAttributeMaxDynamicSharedMemorySize, "
+            "(int)SMEM_BYTES);",
+            "  if (err != cudaSuccess) return (int)err;", *setup,
+            "  const dim3 block(THREADS);",
+            f"  const dim3 grid({', '.join(map(str, grid))});  // {what}",
+            f"  {kernel}<<<grid, block, SMEM_BYTES, (cudaStream_t)stream>>>(",
+            f"      {args});",
+            "  return (int)cudaGetLastError();", "}"]
 
 
 def _io_text(bf16: bool, vec: bool):
@@ -1280,85 +1461,79 @@ def _store_lines(g: Geometry, y_first: int, pad: str):
     return o
 
 
-def _kernel_text(g: Geometry, shard: bool, level_call):
-    """The kernel; ``level_call(t)`` is (function, window arguments,
-    axis-0 offsets of the planes it reads) of level ``t``."""
-    d3 = g.ndim == 3
+def _kernel_text(g: Geometry, shard: bool, bf16: bool, level_call, beside):
+    """The ``__global__`` kernel of every streamed plan (the design note's
+    *One skeleton*): the plan's kind (ring, windowed strip or windowed 3D)
+    branches here, the feed's pieces (``g.feed``) go in their places.
+    ``level_call(t)`` is (function, window arguments, axis-0 offsets of the
+    planes it reads) of level ``t``; a windowed 3D plan's ``level_quad``
+    also takes the cells ``beside`` its quad (``_own_row_3d``)."""
+    d3, w3 = g.ndim == 3, g.window3d
     H, L, r = g.frame, g.levels, g.reach
     wl = g.window_len
-    # rows of the segment's window staged (a factor plan: TAIL more)
-    feed_end = "n0 + 2 * H" + (" + TAIL" if g.tail else "")
-    A0 = "D" if d3 else "M"
+    feed = g.feed
+    # planes (rows) of the segment's window staged: a factor plan's TAIL more
+    end = "n0 + 2 * H" + (" + TAIL" if g.tail else "")
     rng = ", int s_lo, int s_hi" if shard else ""
-    lo0, hi0 = ("s_lo", "s_hi") if shard else ("H", f"{A0} - H")
+    lo0, hi0 = ("s_lo", "s_hi") if shard else ("H", ("D" if d3 else "M")
+                                               + " - H")
     seg_idx = "blockIdx.z" if d3 else "blockIdx.y"
-    o = []
-    o.append("__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)")
-    o.append("stencil_kernel(const T* __restrict__ src, T* __restrict__ dst"
-             f"{rng}) {{")
-    o.append("  extern __shared__ float4 smem4[];")
-    o.append("  float* const smem = reinterpret_cast<float*>(smem4) + GUARD;")
-    o.append(f"  // this CTA's segment [a0, a1) of the store range "
-             f"[{lo0}, {hi0}): uniform over the block")
-    o.append(f"  const int a0 = {lo0} + (int){seg_idx} * SEG;")
-    o.append(f"  const int a1 = a0 + SEG < {hi0} ? a0 + SEG : {hi0};")
-    o.append("  if (a0 >= a1) return;")
-    o.append("  const int n0 = a1 - a0;")
-    o.append("  // global coordinates of the plane's local (0, 0)")
+    # 3D windows: the ring slot of the plane a level writes is (its output
+    # plane + woff) % RING: that plane is REACH - dhi planes older, and
+    # woff >= 0
+    woff = g.ring * r - r + g.dhi
+
+    def push(t, value, pad):
+        return ([f"{pad}w[{t}][{k}] = w[{t}][{k + 1}];" for k in range(wl - 1)]
+                + [f"{pad}w[{t}][{wl - 1}] = {value};"])
+
+    o = ["__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)",
+         f"stencil_kernel({feed.source}, T* __restrict__ dst{rng}) {{",
+         f"  extern __shared__ {feed.align}float4 smem4[];",
+         "  float* const smem = reinterpret_cast<float*>(smem4) + GUARD;",
+         f"  // this CTA's segment [a0, a1) of the store range [{lo0}, {hi0}):"
+         " uniform over the block",
+         f"  const int a0 = {lo0} + (int){seg_idx} * SEG;",
+         f"  const int a1 = a0 + SEG < {hi0} ? a0 + SEG : {hi0};",
+         "  if (a0 >= a1) return;",
+         "  const int n0 = a1 - a0;",
+         "  // global coordinates of the plane's local (0, 0)"]
     if d3:
         o.append("  const int y0 = (int)blockIdx.y * TY - H;")
     o.append("  const int x0 = (int)blockIdx.x * TX - HX;")
-    coords = ("y0, " if d3 else "") + "x0"
-    fetch_args = f"a0 - H + s, {coords}, st"
-    if g.ahead:
-        o.append("  Raw* const staging = reinterpret_cast<Raw*>(")
-        o.append("      smem + GUARD + LEVELS * RING * PLANE);")
-        o.append("  // the first AHEAD planes of the window, one copy group "
-                 "each")
-        o.append("  for (int s = 0; s < AHEAD; ++s) {")
-        o.append(f"    if (s < {feed_end})")
-        o.append(f"      request_plane(src, a0 - H + s, {coords}, staging + "
-                 "s * PLANE_QUADS);")
-        o.append("    __pipeline_commit();")
-        o.append("  }")
-    else:
-        o.append("  Raw st[STAGE];")
+    mine = (["  // this thread's quad of every plane: quad q of row `row`; a "
+             "thread past the plane's",
+             "  // quads owns none",
+             "  const int i = threadIdx.x, row = i / QX, q = i - row * QX;"]
+            if w3 else ["  const int q = threadIdx.x;  // this thread's quad "
+                        "of every row"] if g.window else [])
+    o += feed.prologue(g, end, bf16, mine)
     if g.window:
-        o.append("  const int q = threadIdx.x;  // this thread's quad of "
-                 "every row")
-        o.append("  // w[t][k]: the thread's quad of level t (0: the source) "
-                 "in its last WINDOW rows")
-        o.append("  float4 w[LEVELS][WINDOW];")
-        o.append("#pragma unroll")
-        o.append("  for (int t = 0; t < LEVELS; ++t)")
-        o.append("#pragma unroll")
-        o.append("    for (int k = 0; k < WINDOW; ++k)")
-        o.append("      w[t][k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);")
-    o.append("  // step s stages source plane s of the window [a0 - H, a1 + H)"
-             "; level t then")
-    o.append("  // computes its plane s - t * (REACH + 1) from planes staged "
-             "in earlier steps")
-    o.append("  for (int s = 0; s < n0 + 2 * H + LEVELS; ++s) {")
-    o.append(f"    const bool feed = s < {feed_end};")
-    if g.ahead:
-        o.append("    // request plane s + AHEAD now; plane s, requested "
-                 "AHEAD steps ago, is staged")
-        o.append("    // after the levels")
-        o.append(f"    if (s + AHEAD < {feed_end})")
-        o.append(f"      request_plane(src, a0 - H + s + AHEAD, {coords},")
-        o.append("                    staging + ((s + AHEAD) % (AHEAD + 1)) "
-                 "* PLANE_QUADS);")
-        o.append("    __pipeline_commit();")
-    else:
-        o.append("    // request the plane now, stage it after the levels: "
-                 "its latency hides")
-        o.append(f"    if (feed) fetch_plane(src, {fetch_args});")
+        o += (["  // w[t][k]: the thread's quad of level t (0: the source) "
+               "in the k-th of its last WINDOW", "  // planes"] if w3 else
+              ["  // w[t][k]: the thread's quad of level t (0: the source) "
+               "in its last WINDOW rows"])
+        o += ["  float4 w[LEVELS][WINDOW];",
+              "#pragma unroll",
+              "  for (int t = 0; t < LEVELS; ++t)",
+              "#pragma unroll",
+              "    for (int k = 0; k < WINDOW; ++k)",
+              "      w[t][k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);"]
+    o.append("  // step s stages source plane s of the window [a0 - H, a1 + "
+             "H); level t then")
+    o += (["  // computes its plane s - t * (REACH + 1) from planes of "
+           "earlier steps, the levels last",
+           "  // to first, so that each reads the window of the level below "
+           "before that moves on"] if w3 else
+          ["  // computes its plane s - t * (REACH + 1) from planes staged in "
+           "earlier steps"])
+    o += ["  for (int s = 0; s < n0 + 2 * H + LEVELS; ++s) {",
+          f"    const bool feed = s < {end};"]
+    o += feed.request(g, end, bf16)
     # with register windows the levels run last to first: level t reads
     # level t - 1's window before level t - 1 pushes this step's row
     for t in (range(L, 0, -1) if g.window else range(1, L + 1)):
         y_first, rows, q_first, qw = g.level_region(t)
-        nq = rows * qw
-        lag = t * (r + 1)
         fn, windows, planes = level_call(t)
         # the levels whose windows a V2 level's R reads run one row past
         # their range (that row is read by no stored cell), so that the
@@ -1366,193 +1541,9 @@ def _kernel_text(g: Geometry, shard: bool, level_call):
         past = g.tail if g.factor and t % 2 == 0 and t < L else 0
         o.append(f"    {{  // level {t} of {L}: rows [{y_first}, "
                  f"{y_first + rows}) x quads [{q_first}, {q_first + qw})")
-        o.append(f"      const int p = s - {lag};")
+        o.append(f"      const int p = s - {t * (r + 1)};")
         o.append(f"      if (p >= {t * r} && p < n0 + "
                  f"{2 * H - t * r + past}) {{")
-        if planes:
-            o.append(f"        const float* const in = smem + {(t - 1)} * "
-                     "RING * PLANE;")
-        for d0 in planes:
-            o.append(f"        const float* const {_plane_name(d0)} = in + "
-                     f"((p + {d0 + g.ring}) % RING) * PLANE;")
-        if t < L:
-            o.append(f"        float* const out = smem + ({t} * RING + "
-                     "p % RING) * PLANE;")
-        else:
-            o.append("        const int g0 = a0 - H + p;  // in [a0, a1)")
-        args = [_plane_name(d) for d in planes]
-        if g.window:
-            # one quad per thread; `do ... while (0)` gives the store's
-            # `continue` somewhere to go
-            o.append(f"        if (q >= {q_first} && q < {q_first + qw}) "
-                     "do {")
-            o.append(f"          const float4 v = {fn}("
-                     + ", ".join(windows + args + ["4 * q"]) + ");")
-            if t < L:
-                o.append("          *reinterpret_cast<float4*>(out + 4 * q) "
-                         "= v;")
-                o += [f"          w[{t}][{k}] = w[{t}][{k + 1}];"
-                      for k in range(wl - 1)]
-                o.append(f"          w[{t}][{wl - 1}] = v;")
-            else:
-                o += _store_lines(g, y_first, "          ")
-            o.append("        } while (0);")
-        else:
-            o.append(f"        for (int i = threadIdx.x; i < {nq}; "
-                     "i += THREADS) {")
-            if d3:
-                o.append(f"          const int row = i / {qw}, q = i - row * "
-                         f"{qw} + {q_first};")
-                o.append(f"          const int at = (row + {y_first}) * EX + "
-                         "4 * q;")
-            else:
-                o.append(f"          const int q = i + {q_first};")
-                o.append("          const int at = 4 * q;")
-            call = f"{fn}(" + ", ".join(args + ["at"]) + ")"
-            if t < L:
-                o.append(f"          *reinterpret_cast<float4*>(out + at) = "
-                         f"{call};")
-            else:
-                o.append(f"          const float4 v = {call};")
-                o += _store_lines(g, y_first, "          ")
-            o.append("        }")
-        o.append("      }")
-        o.append("    }")
-    o.append("    if (feed) {")
-    own = "raw_to_f32(st[0])"
-    if g.ahead:
-        o.append("      // all but the AHEAD newest of this thread's copy "
-                 "groups have landed")
-        o.append("      __pipeline_wait_prior(AHEAD);")
-        o.append("      const Raw* const slot = staging + (s % (AHEAD + 1))"
-                 " * PLANE_QUADS;")
-        o.append("      stage_arrived(smem + (s % RING) * PLANE, slot);")
-        own = "raw_to_f32(slot[q])"
-    else:
-        o.append("      stage_plane(smem + (s % RING) * PLANE, st);")
-    if g.window:
-        # a narrow strip has more threads than quads
-        o.append("      if (q < PLANE_QUADS) {")
-        o += [f"        w[0][{k}] = w[0][{k + 1}];" for k in range(wl - 1)]
-        o.append(f"        w[0][{wl - 1}] = {own};")
-        o.append("      }")
-    o.append("    }")
-    o.append("    __syncthreads();")
-    o.append("  }")
-    o.append("}")
-    return o
-
-
-def _kernel_text_3d(g: Geometry, shard: bool, planes, beside, bf16: bool):
-    """The kernel of a windowed 3D plan: ``level_quad`` reads the planes at
-    the axis-0 offsets ``planes`` from shared memory and takes the cells
-    ``beside`` (``_own_row_3d``) as arguments; ``bf16`` places a TMA-fed
-    text's boxes (``BX``)."""
-    H, L, r = g.frame, g.levels, g.reach
-    wl = g.window_len
-    base = wl - 1 - r
-    rng = ", int s_lo, int s_hi" if shard else ""
-    lo0, hi0 = ("s_lo", "s_hi") if shard else ("H", "D - H")
-    xb = "x0 - xs" if bf16 else "x0"   # a TMA box's first column
-    # the ring slot of the plane a level writes is (its output plane + woff)
-    # % RING: that plane is REACH - dhi planes older, and woff >= 0
-    woff = g.ring * r - r + g.dhi
-
-    def push(t, value, pad):
-        return ([f"{pad}w[{t}][{i}] = w[{t}][{i + 1}];" for i in range(wl - 1)]
-                + [f"{pad}w[{t}][{wl - 1}] = {value};"])
-
-    source = ("const __grid_constant__ CUtensorMap map" if g.tma
-              else "const T* __restrict__ src")
-    o = ["__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)",
-         f"stencil_kernel({source}, T* __restrict__ dst{rng}) {{",
-         "  extern __shared__ " + ("__align__(128) " if g.tma else "")
-         + "float4 smem4[];",
-         "  float* const smem = reinterpret_cast<float*>(smem4) + GUARD;",
-         f"  // this CTA's segment [a0, a1) of the store range [{lo0}, {hi0}):"
-         " uniform over the block",
-         f"  const int a0 = {lo0} + (int)blockIdx.z * SEG;",
-         f"  const int a1 = a0 + SEG < {hi0} ? a0 + SEG : {hi0};",
-         "  if (a0 >= a1) return;",
-         "  const int n0 = a1 - a0;",
-         "  // global coordinates of the plane's local (0, 0)",
-         "  const int y0 = (int)blockIdx.y * TY - H;",
-         "  const int x0 = (int)blockIdx.x * TX - HX;"]
-    if not g.tma:
-        o.append("  Raw st[STAGE];")
-    o += ["  // this thread's quad of every plane: quad q of row `row`; a "
-          "thread past the plane's",
-          "  // quads owns none",
-          "  const int i = threadIdx.x, row = i / QX, q = i - row * QX;"]
-    if g.tma:
-        o += ["  // plane k of the window [a0 - H, a1 + H) lands in slot k % "
-              "SLOTS, whose barrier",
-              "  // full[k % SLOTS] counts its bytes; the last thread, in the "
-              "warp with the fewest quads,",
-              "  // asks for each plane AHEAD steps before its use and sees it "
-              "land a step before",
-              "  float* const slots = reinterpret_cast<float*>(smem4) + FEED;",
-              "  uint64_t* const full = reinterpret_cast<uint64_t*>(slots + "
-              "SLOTS * SLOT);",
-              "  const bool issuer = i == THREADS - 1;"]
-        if bf16:
-            o += ["  // a box's first column: x0 rounded down to 8 cells, xs "
-                  "cells before it",
-                  "  const int xs = x0 & 7;"]
-        o += ["  if (issuer)",
-              "    for (int k = 0; k < SLOTS; ++k) tma_bar_init(full + k);",
-              "  __syncthreads();  // the barriers are set up",
-              "  if (issuer) {  // the first AHEAD planes",
-              "    for (int k = 0; k < AHEAD && k < n0 + 2 * H; ++k)",
-              f"      request_plane(&map, slots, full, k, a0 - H, y0, {xb});",
-              "    tma_bar_wait(full, 0u);  // plane 0 has landed",
-              "  }",
-              "  __syncthreads();"]
-    o += ["  // w[t][k]: the thread's quad of level t (0: the source) in the "
-         "k-th of its last WINDOW",
-         "  // planes",
-         "  float4 w[LEVELS][WINDOW];",
-         "#pragma unroll",
-         "  for (int t = 0; t < LEVELS; ++t)",
-         "#pragma unroll",
-         "    for (int k = 0; k < WINDOW; ++k)",
-         "      w[t][k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);",
-         "  // step s stages source plane s of the window [a0 - H, a1 + H); "
-         "level t then",
-         "  // computes its plane s - t * (REACH + 1) from planes of earlier "
-         "steps, the levels last",
-         "  // to first, so that each reads the window of the level below "
-         "before that moves on",
-         "  for (int s = 0; s < n0 + 2 * H + LEVELS; ++s) {",
-         "    const bool feed = s < n0 + 2 * H;"]
-    if g.tma:
-        o += ["    // plane s + AHEAD, into the slot that plane s - 1 left "
-              "at the last barrier",
-              "    if (issuer && s + AHEAD < n0 + 2 * H)",
-              "      request_plane(&map, slots, full, s + AHEAD, a0 - H, y0, "
-              f"{xb});",
-              "    // plane s landed before the last barrier: read the "
-              "thread's quad now, stage it",
-              "    // after the levels",
-              "    Raw own;",
-              "    if (feed && i < PLANE_QUADS)"]
-        if bf16:
-            o += ["      own = *reinterpret_cast<const Raw*>(",
-                  "          reinterpret_cast<const T*>(slots + s % SLOTS * "
-                  "SLOT) + row * BX + xs + 4 * q);"]
-        else:
-            o += ["      own = reinterpret_cast<const Raw*>(slots + s % SLOTS "
-                  "* SLOT)[i];"]
-    else:
-        o += ["    // request the plane now, stage it after the levels: its "
-              "latency hides",
-              "    if (feed) fetch_plane(src, a0 - H + s, y0, x0, st);"]
-    for t in range(L, 0, -1):
-        y_first, rows, q_first, qw = g.level_region(t)
-        o.append(f"    {{  // level {t} of {L}: rows [{y_first}, "
-                 f"{y_first + rows}) x quads [{q_first}, {q_first + qw})")
-        o.append(f"      const int p = s - {t * (r + 1)};")
-        o.append(f"      if (p >= {t * r} && p < n0 + {2 * H - t * r}) {{")
         if planes:
             o.append(f"        const float* const in = smem + {t - 1} * "
                      "RING * PLANE;")
@@ -1566,45 +1557,77 @@ def _kernel_text_3d(g: Geometry, shard: bool, planes, beside, bf16: bool):
         for name, d0, c, m in beside:
             o.append(f"        const float {name} = __shfl_"
                      f"{'up' if m < 0 else 'down'}_sync(0xffffffffu, "
-                     f"w[{t - 1}][{d0 + base}].{c}, {abs(m)});")
-        if t < L:
+                     f"w[{t - 1}][{d0 + wl - 1 - r}].{c}, {abs(m)});")
+        if t == L:
+            o.append("        const int g0 = a0 - H + p;  // in [a0, a1)")
+        elif w3:
             o.append("        // the plane the level above reads newest a "
                      "step later")
             o.append(f"        float* const out = smem + ({t} * RING + "
                      f"(p + {woff}) % RING) * PLANE;")
         else:
-            o.append("        const int g0 = a0 - H + p;  // in [a0, a1)")
-        # `do ... while (0)` gives the store's `continue` somewhere to go
-        o.append(f"        if (row >= {y_first} && row < {y_first + rows} "
-                 f"&& q >= {q_first} && q < {q_first + qw}) do {{")
-        o.append("          const float4 v = level_quad(" + ", ".join(
-            [f"w[{t - 1}]"] + [b[0] for b in beside]
-            + [_plane_name(d) for d in planes] + ["4 * i"]) + ");")
-        if t < L:
-            o += push(t, "v", "          ")
-            o.append("          *reinterpret_cast<float4*>(out + 4 * i) = "
-                     f"w[{t}][WRITE];")
+            o.append(f"        float* const out = smem + ({t} * RING + "
+                     "p % RING) * PLANE;")
+        args = windows + [b[0] for b in beside] + [_plane_name(d)
+                                                   for d in planes]
+        if g.window:
+            # one quad per thread; `do ... while (0)` gives the store's
+            # `continue` somewhere to go
+            rows_in = (f"row >= {y_first} && row < {y_first + rows} && "
+                       if w3 else "")
+            o.append(f"        if ({rows_in}q >= {q_first} && q < "
+                     f"{q_first + qw}) do {{")
+            o.append(f"          const float4 v = {fn}(" + ", ".join(
+                args + ["4 * i" if w3 else "4 * q"]) + ");")
+            if t == L:
+                o += _store_lines(g, 0, "          ")
+            elif w3:
+                o += push(t, "v", "          ")
+                o.append("          *reinterpret_cast<float4*>(out + 4 * i) = "
+                         f"w[{t}][WRITE];")
+            else:
+                o.append("          *reinterpret_cast<float4*>(out + 4 * q) "
+                         "= v;")
+                o += push(t, "v", "          ")
+            o.append("        } while (0);")
         else:
-            o += _store_lines(g, 0, "          ")
-        o.append("        } while (0);")
+            o.append(f"        for (int i = threadIdx.x; i < {rows * qw}; "
+                     "i += THREADS) {")
+            if d3:
+                o.append(f"          const int row = i / {qw}, q = i - row * "
+                         f"{qw} + {q_first};")
+                o.append(f"          const int at = (row + {y_first}) * EX + "
+                         "4 * q;")
+            else:
+                o.append(f"          const int q = i + {q_first};")
+                o.append("          const int at = 4 * q;")
+            call = f"{fn}(" + ", ".join(args + ["at"]) + ")"
+            if t == L:
+                o.append(f"          const float4 v = {call};")
+                o += _store_lines(g, y_first, "          ")
+            else:
+                o.append(f"          *reinterpret_cast<float4*>(out + at) = "
+                         f"{call};")
+            o.append("        }")
         o.append("      }")
         o.append("    }")
-    o.append("    if (feed && i < PLANE_QUADS) {")
-    o += push(0, "raw_to_f32(own)" if g.tma else "raw_to_f32(st[0])",
-              "      ")
-    o.append(f"      *reinterpret_cast<float4*>(smem + ((s + {woff}) % RING) "
-             "* PLANE + 4 * i) =")
-    o.append("          w[0][WRITE];")
+    if w3:
+        o.append("    if (feed && i < PLANE_QUADS) {")
+        o += push(0, feed.own, "      ")
+        o.append(f"      *reinterpret_cast<float4*>(smem + ((s + {woff}) % "
+                 "RING) * PLANE + 4 * i) =")
+        o.append("          w[0][WRITE];")
+    else:
+        o.append("    if (feed) {")
+        o += feed.stage
+        if g.window:
+            # a narrow strip has more threads than quads
+            o.append("      if (q < PLANE_QUADS) {")
+            o += push(0, feed.own, "        ")
+            o.append("      }")
     o.append("    }")
-    if g.tma:
-        o.append("    // the issuer sees plane s + 1 land; the barrier shows it "
-                 "to every thread")
-        o.append("    if (issuer && s + 1 < n0 + 2 * H)")
-        o.append("      tma_bar_wait(full + (s + 1) % SLOTS, (unsigned)((s + 1) "
-                 "/ SLOTS) & 1u);")
-    o.append("    __syncthreads();")
-    o.append("  }")
-    o.append("}")
+    o += feed.end_step(end)
+    o += ["    __syncthreads();", "  }", "}"]
     return o
 
 
@@ -1639,8 +1662,7 @@ class TileGeometry:
 
     @property
     def ctas_per_sm(self) -> int:
-        return max(1, min(SMEM_LIMIT // (self.smem_bytes + SMEM_RESERVED),
-                          2048 // self.threads, 8))
+        return _ctas_by_smem(self.smem_bytes, self.threads)
 
     @property
     def n_segments(self) -> int:
@@ -1666,9 +1688,8 @@ def tile2d_geometry(taps, rows: int, cols: int, tm: int,
     h = int(taps.halo)
     hx = _ceil_to(h, QUAD)
     ring = 2 * h + 2 + AHEAD_2D
-    widths = [min(ex, _ceil_to(cols, QUAD) + 2 * hx) for ex in STRIP_2D
-              if ex - 2 * hx >= QUAD]
-    fits = [ex for ex in widths if 4 * ring * ex <= SMEM_LIMIT]
+    fits = [ex for _, _, (_, ex) in _column_entries((rows, cols), h)
+            if 4 * ring * ex <= SMEM_LIMIT]
     if not fits:
         raise ValueError(f"halo {h} is too wide for a shared-memory ring")
     ex = fits[0]
@@ -1698,7 +1719,7 @@ def _tile_quad(taps):
          "// rows at offsets -2, 0, ... from it in the ring; gK_j is column "
          "shift K's partial",
          "// sum of output j (shifts in ascending dj, rows in ascending di)."]
-    args = [f"const float* __restrict__ {_row_name(di)}" for di in dis]
+    args = [f"const float* __restrict__ {_plane_name(di, "r")}" for di in dis]
     o.append("__device__ __forceinline__ float4 tile_quad("
              + ", ".join(args + ["int at"]) + ") {")
     o.append("  float " + ", ".join(f"g{k}_{j}" for k in range(len(groups))
@@ -1707,7 +1728,7 @@ def _tile_quad(taps):
     for rid, di in enumerate(dis):
         here = [(k, dj, c) for k, (dj, rows) in enumerate(groups)
                 for d, c in rows if d == di]
-        lines, expr = _row_loads(rid, _row_name(di), 0,
+        lines, expr = _row_loads(rid, _plane_name(di, "r"), 0,
                                  [dj for _, dj, _ in here])
         o += lines
         for k, dj, c in here:
@@ -1725,10 +1746,6 @@ def _tile_quad(taps):
         for j in range(QUAD)) + ");")
     o.append("}")
     return o, dis
-
-
-def _row_name(di: int) -> str:
-    return f"r_{'m' if di < 0 else 'p'}{abs(di)}"
 
 
 def tile2d_source(taps, rows: int, cols: int, tm: int,
@@ -1828,10 +1845,10 @@ def tile2d_source(taps, rows: int, cols: int, tm: int,
              "continue;")
     o.append("    const int c = s - H;  // the output's window row")
     for di in dis:
-        o.append(f"    const float* const {_row_name(di)} = ring + "
+        o.append(f"    const float* const {_plane_name(di, "r")} = ring + "
                  f"((c + ({di})) % ROWS) * EX;")
     o.append("    const float4 v = tile_quad(" + ", ".join(
-        [_row_name(di) for di in dis] + ["4 * q"]) + ");")
+        [_plane_name(di, "r") for di in dis] + ["4 * q"]) + ");")
     o.append("    const int gx = x0 + 4 * q;")
     o.append("    float* const cell = dst + (size_t)(g0 + c) * C + gx;")
     if g.vec:
@@ -1842,24 +1859,8 @@ def tile2d_source(taps, rows: int, cols: int, tm: int,
     o.append("  }")
     o.append("}")
     o.append("")
-    o.append('extern "C" const char* error_string(int err) {')
-    o.append("  return cudaGetErrorString((cudaError_t)err);")
-    o.append("}")
-    o.append("")
-    o.append('extern "C" int launch(const void* src, void* dst, '
-             "void* stream) {")
-    o.append("  cudaError_t err = cudaFuncSetAttribute(")
-    o.append("      tile2d_kernel, "
-             "cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);")
-    o.append("  if (err != cudaSuccess) return (int)err;")
-    o.append("  const dim3 block(THREADS);")
-    o.append("  const dim3 grid(" + ", ".join(map(str, g.grid)) + ");"
-             "  // strips, then segments")
-    o.append("  tile2d_kernel<<<grid, block, SMEM_BYTES, "
-             "(cudaStream_t)stream>>>(")
-    o.append("      (const float*)src, (float*)dst);")
-    o.append("  return (int)cudaGetLastError();")
-    o.append("}")
+    o += _host_text("tile2d_kernel", g.grid, "strips, then segments",
+                    "(const float*)src, (float*)dst")
     return "\n".join(o)
 
 

@@ -63,7 +63,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import hashlib
 import os
 import re
 import shutil
@@ -79,7 +78,7 @@ import torch
 import torch.nn.functional as F
 
 from drstencil_tpu_torch.ops import codegen
-from drstencil_tpu_torch.ops.codegen import NVCC_FLAGS, SMEM_LIMIT
+from drstencil_tpu_torch.ops.codegen import NVCC_FLAGS, SMEM_LIMIT, is_factor
 
 # Most taps of one level (and of a tile2d table): ``level_plan`` holds
 # every plan to it, a bound on the text a plan unrolls.
@@ -159,10 +158,6 @@ class FactorTaps:
         return sum(len(c) for _, c in (self.v1, self.v2, self.r))
 
 
-def is_factor(taps) -> bool:
-    return isinstance(taps, FactorTaps)
-
-
 def sm_count(device=None) -> int:
     """The SMs a plan's segments are chosen to fill: on a CUDA ``device``
     (``None``: the current one, where there is a card) the count the
@@ -235,10 +230,9 @@ class _Library:
             return self._lib
 
     def _load(self):
-        with open(self.source, "rb") as f:
-            src = f.read()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        self.path = os.path.join(BUILD_DIR, f"{self.stem}_{digest[:16]}.so")
+        with open(self.source, encoding="utf-8", newline="") as f:
+            digest = codegen.source_hash(f.read())
+        self.path = os.path.join(BUILD_DIR, f"{self.stem}_{digest}.so")
         t0 = time.perf_counter()
         if not os.path.exists(self.path):
             self.build_log = _run_nvcc(self.source, self.path)
