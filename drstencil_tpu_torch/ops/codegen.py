@@ -225,20 +225,6 @@ def _ctas_by_registers(threads: int, regs: int) -> int:
 
 # -- the plane feeds (the design note's *Feeds*) -----------------------------
 
-def _coords(g) -> str:
-    """The arguments of a plane's local (0, 0)."""
-    return ("y0, " if g.ndim == 3 else "") + "x0"
-
-
-def _quad_at(g):
-    """The global row ``gy`` (3D) and first column ``gx`` of a thread's
-    ``i``-th quad of a plane whose local (0, 0) is ``(y0, x0)``."""
-    if g.ndim == 3:
-        return ["    const int row = i / QX, gy = y0 + row;",
-                "    const int gx = x0 + 4 * (i - row * QX);"]
-    return ["    const int gx = x0 + 4 * i;"]
-
-
 def _stage_fn(comment: str, name: str, arg: str, value: str):
     """A helper that stages a thread's quads of a plane into the ring."""
     head = f"__device__ __forceinline__ void {name}("
@@ -315,7 +301,9 @@ class RegisterFeed(Feed):
              "#pragma unroll",
              "  for (int k = 0; k < STAGE; ++k) {",
              "    const int i = (int)threadIdx.x + k * THREADS;",
-             *_quad_at(g),
+             *(["    const int row = i / QX, gy = y0 + row;",
+                "    const int gx = x0 + 4 * (i - row * QX);"] if d3 else
+               ["    const int gx = x0 + 4 * i;"]),
              "    const bool in = in0 && i < PLANE_QUADS"
              + (" && gy >= 0 && gy < M;" if d3 else ";"),
              f"    st[k] = fetch_quad(in ? src + {row} : src, gx, in);",
@@ -331,8 +319,9 @@ class RegisterFeed(Feed):
 
     def request(self, g, end: str, bf16: bool):
         return ["    // request the plane now, stage it after the levels: its "
-                "latency hides", "    if (feed) fetch_plane(src, a0 - H + s, "
-                f"{_coords(g)}, st);"]
+                "latency hides",
+                "    if (feed) fetch_plane(src, a0 - H + s, "
+                f"{'y0, ' if g.ndim == 3 else ''}x0, st);"]
 
 
 REGISTERS = RegisterFeed()
@@ -340,8 +329,8 @@ REGISTERS = RegisterFeed()
 
 @dataclass(frozen=True)
 class CpAsyncFeed(Feed):
-    """Source rows copied ``ahead`` steps ahead by ``cp.async``, one copy
-    group a row, each thread its own quads (*Feeds*)."""
+    """A strip's source rows copied ``ahead`` steps ahead by ``cp.async``,
+    one copy group a row, each thread its own quads (*Feeds*)."""
 
     includes = ("cuda_bf16.h", "cuda_runtime.h", "cuda_pipeline.h",
                 "stddef.h")
@@ -360,28 +349,24 @@ class CpAsyncFeed(Feed):
                 "staging planes, sized for fp32"] + super().constants(g, bf16)
 
     def helpers(self, g, bf16: bool):
-        d3 = g.ndim == 3
-        row = "((size_t)g0 * M + gy) * N" if d3 else "(size_t)g0 * N"
         return ["// Request plane g0 of the source (0 outside the domain) "
                 "into a staging plane,",
                 "// each thread the quads it will itself stage.",
                 "__device__ __forceinline__ void request_plane(const T* "
-                f"__restrict__ src, int g0, {'int y0, ' if d3 else ''}int x0,",
+                "__restrict__ src, int g0, int x0,",
                 "                                              "
                 "Raw* __restrict__ slot) {",
-                f"  const bool in0 = g0 >= 0 && g0 < {'D' if d3 else 'M'};",
+                "  const bool in0 = g0 >= 0 && g0 < M;",
                 "#pragma unroll",
                 "  for (int k = 0; k < STAGE; ++k) {",
                 "    const int i = (int)threadIdx.x + k * THREADS;",
                 "    if (i >= PLANE_QUADS) continue;",
-                *_quad_at(g),
-                "    const bool in = in0 && "
-                + ("gy >= 0 && gy < M && " if d3 else "")
-                + "gx >= 0 && gx < N;",
+                "    const int gx = x0 + 4 * i;",
+                "    const bool in = in0 && gx >= 0 && gx < N;",
                 "    // a quad outside the domain copies nothing and is "
                 "filled with zeros",
-                f"    __pipeline_memcpy_async(slot + i, in ? src + {row} + gx "
-                ": src,",
+                "    __pipeline_memcpy_async(slot + i, in ? src + (size_t)g0 "
+                "* N + gx : src,",
                 "                            sizeof(Raw), in ? 0 : "
                 "sizeof(Raw));",
                 "  }", "}", ""] + _stage_fn(
@@ -393,10 +378,11 @@ class CpAsyncFeed(Feed):
         return ["  Raw* const staging = reinterpret_cast<Raw*>(",
                 "      smem + GUARD + LEVELS * RING * PLANE);",
                 "  // the first AHEAD planes of the window, one copy group "
-                "each", "  for (int s = 0; s < AHEAD; ++s) {",
+                "each",
+                "  for (int s = 0; s < AHEAD; ++s) {",
                 f"    if (s < {end})",
-                f"      request_plane(src, a0 - H + s, {_coords(g)}, staging "
-                "+ s * PLANE_QUADS);",
+                "      request_plane(src, a0 - H + s, x0, staging + s * "
+                "PLANE_QUADS);",
                 "    __pipeline_commit();",
                 "  }"] + mine
 
@@ -405,7 +391,7 @@ class CpAsyncFeed(Feed):
                 "steps ago, is staged",
                 "    // after the levels",
                 f"    if (s + AHEAD < {end})",
-                f"      request_plane(src, a0 - H + s + AHEAD, {_coords(g)},",
+                "      request_plane(src, a0 - H + s + AHEAD, x0,",
                 "                    staging + ((s + AHEAD) % (AHEAD + 1)) * "
                 "PLANE_QUADS);",
                 "    __pipeline_commit();"]
@@ -1226,6 +1212,7 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r}: the kernels take {DTYPES} state")
     g = geometry(plan, dims, sms)
+    feed = g.feed
     ndim, H, L, r = g.ndim, g.frame, g.levels, g.reach
     bf16 = dtype == "bfloat16"
     d3 = ndim == 3
@@ -1246,7 +1233,6 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
              f"{QUAD} outputs per thread along x,")
     o.append("// every shape a constant and the taps unrolled: no table is "
              "passed.")
-    feed = g.feed
     o += [f"#include <{h}>" for h in feed.includes] + [""]
     o.append(f"typedef {'__nv_bfloat16' if bf16 else 'float'} T;"
              "  // the state's storage type")
