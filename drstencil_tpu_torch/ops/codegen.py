@@ -43,17 +43,31 @@ Design (:func:`geometry` makes every choice once, in a :class:`Geometry`):
   table in ``ops/stream.tap_table``'s sorted order from ``acc = 0`` —
   the arithmetic of the table-driven kernels this text replaced, cell
   for cell.
-- *Kinds: rings and register windows.*  A ring plan's threads share out
-  the quads of each level's region.  A windowed strip (2D, where
-  ``levels * (2 * reach + 1)`` quads fit ``WINDOW_REGS`` registers, and
-  every factor plan) gives every thread one quad column for all rows and
-  levels; the thread carries its own cells' last ``2 * reach + 1`` rows of
-  every level in registers (the levels then run last to first within a
-  step, so that level ``t`` reads level ``t - 1``'s window before it moves
-  on), and only the cells beside its quad come from the rings: a 5-point
-  star's level costs 2 shared loads per four cells.  A windowed 3D thread
-  owns one quad of the staged plane, the same on every plane and at every
-  level (where a level's region is smaller, the threads outside it skip),
+- *Kinds: rings, partial sums and register windows.*  A ring plan's
+  threads share out the quads of each level's region.  A windowed strip
+  (2D, where ``levels * (2 * reach + 1)`` quads fit ``WINDOW_REGS``
+  registers, and every factor plan) gives every thread one quad column for
+  all rows and levels, and runs the levels last to first within a step, so
+  that level ``t`` reads what level ``t - 1`` computed a step earlier
+  before that moves on.  A factor plan's thread carries its own cells'
+  last rows of every level in registers and reads only the cells beside
+  its quad from the rings.  Every other windowed strip accumulates
+  *partial sums*: a thread keeps, for every level, the sums of the ``2 *
+  reach + 1`` output rows that an arriving row of the level below feeds;
+  when a row arrives it reads the row's cells beside its quad once (its
+  own quad it holds in registers) and adds tap row ``dy`` of the table to
+  the sum of output row ``j - dy``, whose sum is then whole at ``dy =
+  reach`` (``_partial_row``, ``_partial_level``).  Rows arrive in
+  increasing order, so each cell still sums the table in its sorted order.
+  The steps go ``2 * reach + 1`` at a time, unrolled, so that a sum's
+  register and a ring row's slot are named by the step's place among them
+  (the ring keeps ``2 * reach + 1`` rows: a row is read a step after it is
+  written): a 5 x 5 box's level costs two 8-byte shared loads per four
+  cells, where gathering its output rows cost ten 16-byte ones.
+
+  A windowed 3D thread owns one quad of the staged plane, the same on
+  every plane and at every level (where a level's region is smaller, the
+  threads outside it skip),
   and keeps its window of the source and of every level but the last.  The
   taps on its own row read the window; the cells beside its quad come from
   the neighbouring lanes' windows by warp shuffles (from shared memory at
@@ -639,8 +653,10 @@ class Geometry:
     the same quad of every plane (row in 2D) at every level, and also
     carries its last ``window_len`` planes of the source and of every level
     below the last in registers, so that only taps that reach into a
-    neighbour's cells read the rings.  A 2D thread keeps ``2 * reach + 1``
-    rows, in rings of ``2 * reach + 2``.  Each 3D level writes to its ring
+    neighbour's cells read the rings.  A ``partial`` plan (2D, not factor)
+    keeps instead its quad of each level's newest row and the partial sums
+    of the ``2 * reach + 1`` rows an arriving row feeds, in rings of ``2 *
+    reach + 1`` rows.  Each 3D level writes to its ring
     the plane of its window that the level above reads newest a step later
     (offset ``dhi``), so that a ring keeps only the planes at the offsets
     ``[dlo, dhi]`` of the taps that leave the column, and the plane being
@@ -674,6 +690,13 @@ class Geometry:
     @property
     def window3d(self) -> bool:
         return self.window and self.ndim == 3
+
+    @property
+    def partial(self) -> bool:
+        """Whether the text accumulates partial sums (a windowed 2D plan but
+        factor mode's): a thread reads each arriving row of a level once and
+        adds it to every output row it feeds (``_partial_row``)."""
+        return self.window and self.ndim == 2 and not self.factor
 
     @property
     def window_len(self) -> int:
@@ -820,9 +843,10 @@ def is_factor(plan) -> bool:
 
 def window_regs(plan) -> int:
     """fp32 registers a windowed 2D thread holds in its windows: ``2 *
-    reach + 1`` quads of every level below the last; a factor plan keeps
-    ``4 * reach + 2`` of the levels R reads (0, 2, ..., levels - 2), whose
-    odd neighbours need only their ``2 * reach + 1``."""
+    reach + 1`` quads a level (the partial sums of the rows an arriving row
+    feeds); a factor plan keeps ``4 * reach + 2`` rows of the levels R reads
+    (0, 2, ..., levels - 2), whose odd neighbours need only their ``2 *
+    reach + 1``."""
     r, L = int(plan.reach), int(plan.levels)
     if is_factor(plan):
         return QUAD * (L // 2) * ((4 * r + 2) + (2 * r + 1))
@@ -941,6 +965,11 @@ def geometry(plan, dims, sms: int = SM_COUNT, segment=None,
     # WINDOW_REGS: step 3 and 4)
     in_regs = ndim == 2 and window_regs(plan) <= WINDOW_REGS
     window = in_regs or factor
+    if in_regs and not factor:
+        # the partial-sum text reads a row a step after it is written, and
+        # its steps go 2 * reach + 1 at a time: a ring of as many rows
+        # names each row's slot by its step's place among them
+        ring = 2 * r + 1
     # the feed: a windowed strip's rows by cp.async where they are whole
     # quads, a windowed 3D plan's by _feed_3d, every other by registers
     feed = CpAsyncFeed(AHEAD_2D) if window and vec else REGISTERS
@@ -1155,14 +1184,75 @@ def _level_quad(plan, g: Geometry):
                  "(shared memory where")
         o.append("// that lane is in another warp)")
         body = ["  const int lane = (int)threadIdx.x & 31;"] + body
-    elif g.window:
-        o.append("// in shared memory, w[k] the thread's own quad at offset "
-                 "k - REACH, in registers")
     o = _quad_fn("level_quad", o, ["w"] if g.window else [], planes, body,
                  [b[0] for b in beside])
     o.append("  return make_float4(a0, a1, a2, a3);")
     o.append("}")
     return o, planes, beside
+
+
+def _beside_cells(plan):
+    """Cells beside a quad (relative x, ``0..3`` the quad's own) that some
+    tap of ``plan``'s table reads."""
+    dxs = {off[-1] for off in plan.offsets.tolist()}
+    return sorted({j + dx for dx in dxs for j in range(QUAD)}
+                  - set(range(QUAD)))
+
+
+def _beside_loads(base: str, need):
+    """Shared loads of the cells ``need`` beside the quad ``at`` of the row
+    ``base``: per aligned block of four, one cell as a ``float``, an aligned
+    pair as a ``float2``, more as a ``float4``.  Returns (lines, {relative
+    x: expression})."""
+    lines, expr = [], {}
+    for blk in sorted({j // QUAD for j in need}):
+        inside = [j for j in need if j // QUAD == blk]
+        if len(inside) == 1:
+            j = inside[0]
+            lines.append(f"  const float s_{_signed(j)} = {base}[at + ({j})];")
+            expr[j] = f"s_{_signed(j)}"
+            continue
+        pair = (len(inside) == 2 and inside[1] == inside[0] + 1
+                and inside[0] % 2 == 0)
+        kind, first = ("float2", inside[0]) if pair else ("float4",
+                                                          QUAD * blk)
+        name = f"{'d' if pair else 'q'}_{_signed(first)}"
+        lines.append(f"  const {kind} {name} = *reinterpret_cast<const "
+                     f"{kind}*>({base} + at + ({first}));")
+        for j in inside:
+            expr[j] = f"{name}." + "xyzw"[j - first]
+    return lines, expr
+
+
+def _partial_row(plan):
+    """Text of ``level_row``: the partial-sum form of a level (the design
+    note's *Partial sums*).  Row ``j`` of the level below arrives at the
+    quad ``at``: the thread's own quad ``own`` from its registers, and the
+    cells beside it read once from the row ``b`` in shared memory.  Tap row
+    ``dy`` of the table then adds its taps, in sorted order, to ``o_<dy>``,
+    the partial sum of output row ``j - dy``.  Rows arrive in increasing
+    ``j``, so every output cell's ``fmaf`` chain runs over the table in its
+    sorted order from 0, as ``level_quad``'s does."""
+    lines, expr = _beside_loads("b", _beside_cells(plan))
+    expr.update({j: "own." + "xyzw"[j] for j in range(QUAD)})
+    body = []
+    for off, c in zip(plan.offsets.tolist(), plan.coeffs.tolist()):
+        acc, lit = f"o_{_signed(off[0])}", float32_literal(c)
+        body.append("  " + " ".join(
+            f"{acc}.{x} = fmaf({lit}, {expr[j + off[1]]}, {acc}.{x});"
+            for j, x in enumerate("xyzw")) + f"  // {tuple(off)}")
+    args = (["const float4 own", "const float* __restrict__ b", "int at"]
+            + [f"float4& o_{_signed(dy)}"
+               for dy in range(-int(plan.reach), int(plan.reach) + 1)])
+    return ["// One arriving row j of the level below at the quad `at`: the "
+            "thread's own quad",
+            "// `own` in registers, the cells beside it read once from the "
+            "row `b` in shared",
+            "// memory; tap row dy adds its taps, in sorted order, to o_<dy>, "
+            "the partial sum",
+            "// of output row j - dy",
+            "__device__ __forceinline__ void level_row(" + ", ".join(args)
+            + ") {"] + lines + body + ["}"]
 
 
 def _factor_quads(plan, g: Geometry):
@@ -1251,6 +1341,11 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
         o.append(f"constexpr int RING = {g.ring};  // planes a level keeps: "
                  "those its taps off the column read,")
         o.append("                        // and the one being written")
+    elif g.partial:
+        o.append(f"constexpr int RING = {g.ring};  // rows a level keeps: "
+                 "2 * REACH + 1, a row's slot its")
+        o.append("                        // step's place among the WINDOW "
+                 "unrolled ones")
     else:
         o.append(f"constexpr int RING = {g.ring};  // planes a level keeps: "
                  "2 * REACH + 2")
@@ -1268,22 +1363,28 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
                  "the level above reads")
         o.append("// newest a step later")
         o.append(f"constexpr int WRITE = {g.window_write};")
+    elif g.partial:
+        o.append("// a thread owns quad threadIdx.x of every row and keeps "
+                 "in registers its quad of")
+        o.append("// each level's newest row and each level's partial sums "
+                 "of the WINDOW output rows")
+        o.append("// that an arriving row feeds")
+        o.append("constexpr int WINDOW = 2 * REACH + 1;")
+        o.append("static_assert(RING == WINDOW, \"a row's slot is its step's "
+                 "place\");")
     elif g.window:
         o.append("// a thread owns quad threadIdx.x of every row and keeps "
                  "each level's last WINDOW")
         o.append("// rows of it in registers")
-        if g.factor:
-            o.append("// (4 * REACH + 2: a V2 level reads R's rows of the "
-                     "level two below, whose")
-            o.append("// newest row is then 2 * REACH + 1 rows past the "
-                     "output row)")
-            o.append("constexpr int WINDOW = 4 * REACH + 2;")
-            o.append("// source rows staged past the window, so that the "
-                     "windows R reads shift")
-            o.append("// on to the last output row")
-            o.append("constexpr int TAIL = 1;")
-        else:
-            o.append("constexpr int WINDOW = 2 * REACH + 1;")
+        o.append("// (4 * REACH + 2: a V2 level reads R's rows of the "
+                 "level two below, whose")
+        o.append("// newest row is then 2 * REACH + 1 rows past the "
+                 "output row)")
+        o.append("constexpr int WINDOW = 4 * REACH + 2;")
+        o.append("// source rows staged past the window, so that the "
+                 "windows R reads shift")
+        o.append("// on to the last output row")
+        o.append("constexpr int TAIL = 1;")
     if g.window:
         o.append("static_assert(STAGE == 1, \"one quad per thread\");")
     o += feed.constants(g, bf16)
@@ -1300,6 +1401,8 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
             if t % 2:
                 return "level_v1", [f"w[{t - 1}]"], by_parity[1]
             return "level_v2r", [f"w[{t - 1}]", f"w[{t - 2}]"], by_parity[0]
+    elif g.partial:
+        quad_text, level_call = _partial_row(plan), None
     else:
         quad_text, planes, beside = _level_quad(plan, g)
 
@@ -1447,13 +1550,62 @@ def _store_lines(g: Geometry, y_first: int, pad: str):
     return o
 
 
+def _partial_level(g: Geometry, t: int):
+    """Level ``t``'s block of a step of the partial-sum text (the design
+    note's *Partial sums*), at the step's indentation: row ``p + REACH`` of
+    level ``t - 1`` arrives and feeds the partial sums of rows ``[p, p + 2 *
+    REACH]``; row ``p``'s is then whole, and is stored (to ``dst`` at the
+    last level, to the ring and ``cur[t]`` below it).  A step's ``u``, its
+    place among the ``WINDOW`` unrolled ones, names every sum's register:
+    row ``x``'s is ``ps[t - 1][x % WINDOW]``, and ``s0`` is a multiple of
+    ``WINDOW``."""
+    H, L, r = g.frame, g.levels, g.reach
+    w = 2 * r + 1
+    _, _, q_first, qw = g.level_region(t)
+    lag = t * (r + 1)
+
+    def place(k):   # row p + k's place among the WINDOW unrolled steps
+        return f"(u + {(k - lag) % w})"
+
+    def ps(k):      # the partial sum of row p + k
+        return f"ps[{t - 1}][{place(k)} % WINDOW]"
+
+    o = [f"    {{  // level {t} of {L}: rows [0, 1) x quads [{q_first}, "
+         f"{q_first + qw})",
+         f"      const int p = s - {lag};",
+         "      // row p + REACH of the level below is one of its rows: it "
+         "feeds a row of this one",
+         f"      if (p >= {(t - 2) * r} && p < n0 + {2 * H - t * r}) {{",
+         f"        const float* const b = smem + ({t - 1} * RING + {place(r)}"
+         " % RING) * PLANE;",
+         f"        if (q >= {q_first} && q < {q_first + qw}) do {{",
+         "          // row p + 2 * REACH's sum starts from 0",
+         f"          {ps(2 * r)} = make_float4(0.0f, 0.0f, 0.0f, 0.0f);",
+         "          level_row(" + ", ".join(
+             [f"cur[{t - 1}]", "b", "4 * q"]
+             + [ps(r - dy) for dy in range(-r, r + 1)]) + ");",
+         f"          if (p < {t * r}) continue;  // before the level's first "
+         "row",
+         f"          const float4 v = {ps(0)};"]
+    if t == L:
+        o.append("          const int g0 = a0 - H + p;  // in [a0, a1)")
+        o += _store_lines(g, 0, "          ")
+    else:
+        o += [f"          *reinterpret_cast<float4*>(smem + ({t} * RING + "
+              f"{place(0)} % RING) * PLANE + 4 * q) = v;",
+              f"          cur[{t}] = v;"]
+    return o + ["        } while (0);", "      }", "    }"]
+
+
 def _kernel_text(g: Geometry, shard: bool, bf16: bool, level_call, beside):
     """The ``__global__`` kernel of every streamed plan (the design note's
-    *One skeleton*): the plan's kind (ring, windowed strip or windowed 3D)
-    branches here, the feed's pieces (``g.feed``) go in their places.
-    ``level_call(t)`` is (function, window arguments, axis-0 offsets of the
-    planes it reads) of level ``t``; a windowed 3D plan's ``level_quad``
-    also takes the cells ``beside`` its quad (``_own_row_3d``)."""
+    *One skeleton*): the plan's kind (ring, partial sums, factor mode's
+    windowed strip or windowed 3D) branches here, the feed's pieces
+    (``g.feed``) go in their places.  ``level_call(t)`` is (function,
+    window arguments, axis-0 offsets of the planes it reads) of level ``t``
+    (a partial-sum plan's levels are ``_partial_level``'s); a windowed 3D
+    plan's ``level_quad`` also takes the cells ``beside`` its quad
+    (``_own_row_3d``)."""
     d3, w3 = g.ndim == 3, g.window3d
     H, L, r = g.frame, g.levels, g.reach
     wl = g.window_len
@@ -1494,7 +1646,20 @@ def _kernel_text(g: Geometry, shard: bool, bf16: bool, level_call, beside):
             if w3 else ["  const int q = threadIdx.x;  // this thread's quad "
                         "of every row"] if g.window else [])
     o += feed.prologue(g, end, bf16, mine)
-    if g.window:
+    if g.partial:
+        o += ["  // cur[t]: the thread's quad of level t's newest row (0: the "
+              "source); ps[t][k]: level",
+              "  // t + 1's partial sums of the thread's quad in its output "
+              "rows p, p % WINDOW == k",
+              "  float4 cur[LEVELS], ps[LEVELS][WINDOW];",
+              "#pragma unroll",
+              "  for (int t = 0; t < LEVELS; ++t) {",
+              "    cur[t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);",
+              "#pragma unroll",
+              "    for (int k = 0; k < WINDOW; ++k)",
+              "      ps[t][k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);",
+              "  }"]
+    elif g.window:
         o += (["  // w[t][k]: the thread's quad of level t (0: the source) "
                "in the k-th of its last WINDOW", "  // planes"] if w3 else
               ["  // w[t][k]: the thread's quad of level t (0: the source) "
@@ -1507,18 +1672,39 @@ def _kernel_text(g: Geometry, shard: bool, bf16: bool, level_call, beside):
               "      w[t][k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);"]
     o.append("  // step s stages source plane s of the window [a0 - H, a1 + "
              "H); level t then")
-    o += (["  // computes its plane s - t * (REACH + 1) from planes of "
-           "earlier steps, the levels last",
-           "  // to first, so that each reads the window of the level below "
-           "before that moves on"] if w3 else
-          ["  // computes its plane s - t * (REACH + 1) from planes staged in "
-           "earlier steps"])
-    o += ["  for (int s = 0; s < n0 + 2 * H + LEVELS; ++s) {",
-          f"    const bool feed = s < {end};"]
+    if g.partial:
+        o += ["  // completes its row p = s - t * (REACH + 1): row p + REACH "
+              "of level t - 1, written a",
+              "  // step earlier, arrives and adds to the partial sums of "
+              "rows [p, p + 2 * REACH], the",
+              "  // levels last to first, so that each reads the newest row "
+              "of the level below before",
+              "  // that moves on.  The steps go WINDOW at a time, unrolled, so "
+              "that a partial sum's",
+              "  // register is named by its row's place in the rotation; a "
+              "step past the last only",
+              "  // waits at the barrier",
+              "  for (int s0 = 0; s0 < n0 + 2 * H + LEVELS; s0 += WINDOW) {",
+              "#pragma unroll",
+              "    for (int u = 0; u < WINDOW; ++u) {"]
+        body = len(o)
+        o.append("    const int s = s0 + u;")
+    else:
+        o += (["  // computes its plane s - t * (REACH + 1) from planes of "
+               "earlier steps, the levels last",
+               "  // to first, so that each reads the window of the level "
+               "below before that moves on"] if w3 else
+              ["  // computes its plane s - t * (REACH + 1) from planes "
+               "staged in earlier steps"])
+        o.append("  for (int s = 0; s < n0 + 2 * H + LEVELS; ++s) {")
+    o.append(f"    const bool feed = s < {end};")
     o += feed.request(g, end, bf16)
     # with register windows the levels run last to first: level t reads
     # level t - 1's window before level t - 1 pushes this step's row
     for t in (range(L, 0, -1) if g.window else range(1, L + 1)):
+        if g.partial:
+            o += _partial_level(g, t)
+            continue
         y_first, rows, q_first, qw = g.level_region(t)
         fn, windows, planes = level_call(t)
         # the levels whose windows a V2 level's R reads run one row past
@@ -1606,15 +1792,21 @@ def _kernel_text(g: Geometry, shard: bool, bf16: bool, level_call, beside):
     else:
         o.append("    if (feed) {")
         o += feed.stage
-        if g.window:
-            # a narrow strip has more threads than quads
+        # a narrow strip has more threads than quads
+        if g.partial:
+            o.append(f"      if (q < PLANE_QUADS) cur[0] = {feed.own};")
+        elif g.window:
             o.append("      if (q < PLANE_QUADS) {")
             o += push(0, feed.own, "        ")
             o.append("      }")
     o.append("    }")
     o += feed.end_step(end)
-    o += ["    __syncthreads();", "  }", "}"]
-    return o
+    o += ["    __syncthreads();", "  }"]
+    if g.partial:
+        # the unrolled steps one level deeper
+        o[body:] = [ln if ln.startswith("#") else "  " + ln
+                    for ln in o[body:]] + ["  }"]
+    return o + ["}"]
 
 
 # -- tile2d_fused: the plain-tile experiment's kernel -------------------------

@@ -353,6 +353,8 @@ class PlanKernel:
                         self.build_log = f.read()
             if getattr(self.geometry, "window", False):
                 _COUNTERS.add(**{f"windowed_{self.geometry.ndim}d": 1})
+            if getattr(self.geometry, "partial", False):
+                _COUNTERS.add(partial_2d=1)
             if self.tma:
                 _COUNTERS.add(tma_3d=1)
             lib = ctypes.CDLL(self.path)
@@ -424,7 +426,8 @@ class _PlanCounters:
     def reset(self) -> None:
         with self._lock:
             self._counts = {"disk_hits": 0, "builds": 0, "plan_s": 0.0,
-                            "windowed_2d": 0, "windowed_3d": 0, "tma_3d": 0}
+                            "windowed_2d": 0, "windowed_3d": 0, "tma_3d": 0,
+                            "partial_2d": 0}
 
     def add(self, **by) -> None:
         with self._lock:
@@ -466,7 +469,8 @@ def plan_counters() -> dict:
     counted once; ``windowed_2d`` and ``windowed_3d``, the plans of those
     builds and disk hits whose geometry keeps register windows
     (``codegen.Geometry.window``); ``tma_3d``, those whose text feeds its
-    source planes by TMA (``codegen.Geometry.tma``)."""
+    source planes by TMA (``codegen.Geometry.tma``); ``partial_2d``, those
+    whose text accumulates partial sums (``codegen.Geometry.partial``)."""
     return _COUNTERS.snapshot()
 
 

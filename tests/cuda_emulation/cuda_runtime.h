@@ -15,6 +15,7 @@
 #define __launch_bounds__(...)
 #define __grid_constant__
 #define __align__(n) alignas(n)
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
 static inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }

@@ -93,18 +93,33 @@ def constants(cuda):
     return out
 
 
+def level_fn(cuda):
+    """The level function of a text and its body: ``level_row`` (the
+    partial-sum form of a windowed 2D plan) or ``level_quad``."""
+    fn = "level_row" if "void level_row(" in cuda else "level_quad"
+    head = "void level_row(" if fn == "level_row" else "float4 level_quad("
+    return fn, cuda.split(head)[1].split("\n}")[0]
+
+
 def tap_lines(cuda):
-    """(literal per output cell, tap offset) of ``level_quad``'s fmaf
-    lines, in order."""
-    body = cuda.split("float4 level_quad(")[1].split("return make_float4")[0]
+    """(literal per output cell, tap offset) of the level function's fmaf
+    lines, in order: ``a0..a3`` of ``level_quad``, or ``o_<dy>.x..w`` of
+    ``level_row``, each line one tap for the quad's four cells."""
+    _, body = level_fn(cuda)
     taps = []
     for line in body.splitlines():
-        found = re.findall(r"a(\d) = fmaf\((\S+f), [\w.\[\]]+, a(\d)\);", line)
+        found = re.findall(r"(\w+(?:\.[xyzw])?) = fmaf\((\S+f), [\w.\[\]]+, "
+                           r"(\w+(?:\.[xyzw])?)\);", line)
         if found:
-            assert [(a, b) for a, _, b in found] == [
-                (str(j), str(j)) for j in range(codegen.QUAD)]
+            # one tap: a literal into each of the quad's four accumulators
+            accs = [a for a, _, _ in found]
+            assert accs == [b for _, _, b in found]
             off = tuple(int(v) for v in re.search(
                 r"// \((.*)\)$", line).group(1).split(","))
+            # level_row's accumulators: the partial sum of the row the tap's
+            # row offset feeds
+            assert accs in (["a0", "a1", "a2", "a3"], [
+                f"o_{codegen._signed(off[0])}.{c}" for c in "xyzw"])
             taps.append(([lit for _, lit, _ in found], off))
     return taps
 
@@ -123,9 +138,16 @@ def check_text(cuda, plan, dims, dtype, shard):
             assert emit_mod.literal_value(lit) == float(np.float32(coef))
     assert [off for _, off in taps] == sorted(off for _, off in taps)
     assert cuda.count("= fmaf(") == codegen.QUAD * len(plan.coeffs)
-    assert "float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;" in cuda
+    fn, _ = level_fn(cuda)
+    assert (fn == "level_row") == g.partial
+    if g.partial:
+        # each level opens one partial sum a step, from 0
+        assert cuda.count("= make_float4(0.0f, 0.0f, 0.0f, 0.0f);\n"
+                          "            level_row(") == plan.levels
+    else:
+        assert "float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;" in cuda
     # one call per level
-    assert cuda.count("level_quad(") == plan.levels + 1
+    assert cuda.count(fn + "(") == plan.levels + 1
     assert "TapTable" not in cuda and "coef" not in cuda
     # the constants are the plan's and the geometry's
     names = ("D", "M", "N")[-len(dims):]
@@ -136,11 +158,12 @@ def check_text(cuda, plan, dims, dtype, shard):
     assert tile == g.tile == kernels.tile_shape(plan, dims)
     # a ring per level: 2 * reach + 2 planes; with 3D register windows the
     # planes at the axis-0 offsets of the taps that leave the column, and
-    # the one being written
+    # the one being written; with partial sums 2 * reach + 1 rows, a row's
+    # slot named by its step among the 2 * reach + 1 unrolled ones
     leave = [o[0] for o in plan.offsets.tolist() if any(o[1:])]
     shallow = max(leave) - min(leave) + 2
     ring = (shallow if g.window and len(dims) == 3
-            else 2 * plan.reach + 2)
+            else 2 * plan.reach + (1 if g.partial else 2))
     assert (c["HX"], c["EY"], c["EX"], c["RING"], c["GUARD"]) == (
         g.hx, g.ey, g.ex, ring, g.guard)
     assert (c["THREADS"], c["MIN_BLOCKS"]) == (g.threads, g.min_blocks)
@@ -175,7 +198,10 @@ def check_text(cuda, plan, dims, dtype, shard):
     else:
         assert staging == 0 and "AHEAD" not in c
         assert "__pipeline_memcpy_async" not in cuda
-    assert ("float4 w[LEVELS][WINDOW];" in cuda) == g.window
+    assert ("float4 w[LEVELS][WINDOW];" in cuda) == (g.window
+                                                      and not g.partial)
+    assert ("float4 cur[LEVELS], ps[LEVELS][WINDOW];" in cuda) == g.partial
+    assert g.partial == (g.window and len(dims) == 2 and not g.factor)
     assert c["SMEM_BYTES"] <= kernels.SMEM_LIMIT == 227 * 1024
     assert c["HX"] % 4 == 0 and c["EX"] % 4 == 0 and c["TX"] % 4 == 0
     grid = re.search(r"const dim3 grid\(([\d, ]+)\);", cuda).group(1)
@@ -209,10 +235,18 @@ def test_large_table_text(case):
     cuda = codegen.cuda_source(plan, spec.dims, "float32", False)
     check_text(cuda, plan, tuple(spec.dims), "float32", False)
     # the blocking does not grow with the table: a row's loads sit right
-    # before its fmafs, so one row's values are live at a time
-    body = cuda.split("float4 level_quad(")[1].split("return make_float4")[0]
+    # before its fmafs, so one row's values are live at a time; the
+    # partial-sum form reads its arriving row's cells beside the quad
+    # once, before every fmaf, whatever the table
+    fn, body = level_fn(cuda)
     lines = [ln for ln in body.splitlines()
-             if re.match(r"\s+const float4? [sq]\d", ln) or "= fmaf(" in ln]
+             if re.match(r"\s+const float[24]? [sdq]_?\w+ = ", ln)
+             or "= fmaf(" in ln]
+    if fn == "level_row":
+        loads = [ln for ln in lines if "= fmaf(" not in ln]
+        assert lines[:len(loads)] == loads
+        assert 0 < len(loads) <= 2 * (-(-plan.reach // codegen.QUAD))
+        return
     loads_in_a_row = max(
         len(list(run)) for is_load, run in itertools.groupby(
             lines, key=lambda ln: "= fmaf(" not in ln) if is_load)
@@ -342,25 +376,28 @@ def test_every_plan_stages_ahead_and_prefetch_changes_nothing():
     assert staged == codegen.cuda_source(flat, spec.dims, "float32", False)
 
     def order(text, *marks):
-        """Whether ``marks`` come in this order in the plane loop."""
-        body = text.split("++s) {")[-1]
+        """Whether ``marks`` come in this order in the plane loop (a
+        partial-sum text's steps go in an inner loop over ``u``)."""
+        body = text.split("++u) {" if "++u) {" in text else "++s) {")[-1]
         at = [body.index(m) for m in marks]
         return at == sorted(at)
 
     # a windowed 2D plan: rows are requested AHEAD steps ahead by cp.async
-    # and staged after the levels, which run last to first
-    assert codegen.geometry(deep, spec.dims).window
+    # and staged after the levels, which run last to first, each adding the
+    # newest row of the level below to its partial sums
+    assert codegen.geometry(deep, spec.dims).partial
     assert codegen.geometry(deep, spec.dims).ahead == codegen.AHEAD_2D
     assert order(staged, "request_plane(src, a0 - H + s + AHEAD",
-                 "__pipeline_commit();", "// level 4", "// level 1",
+                 "__pipeline_commit();", "// level 4", "level_row(cur[3]",
+                 "// level 1", "level_row(cur[0]",
                  "__pipeline_wait_prior(AHEAD);", "stage_arrived(",
-                 "if (q < PLANE_QUADS) {", "w[0][2] = raw_to_f32(slot[q]);",
+                 "if (q < PLANE_QUADS) cur[0] = raw_to_f32(slot[q]);",
                  "__syncthreads();")
     # a windowed plan without 16-byte access requests into registers
     odd = codegen.cuda_source(deep, (spec.dims[0], spec.dims[1] - 1),
                               "float32", False)
     assert order(odd, "fetch_plane(", "// level 4", "// level 1",
-                 "stage_plane(", "w[0][2] = raw_to_f32(st[0]);")
+                 "stage_plane(", "cur[0] = raw_to_f32(st[0]);")
     # the others (3D; deep 2D plans) request into registers before the
     # levels and stage after them; a windowed 3D plan (a star table) runs
     # its levels last to first, its planes asked for by TMA AHEAD steps

@@ -19,7 +19,6 @@ exactly the library's float32 coefficients.
 
 import ast
 import os
-import re
 import subprocess
 import sys
 
@@ -43,6 +42,7 @@ from drstencil_tpu_torch.parallel import halo, stream_shard
 from drstencil_tpu_torch.tune.tuned import tpu_config, tuned_entries
 
 from conftest import BENCH_DIR, small_spec
+from test_torch_codegen import level_fn, tap_lines
 
 FIVE_PT = "0 0 0.3\n0 1 0.2\n1 0 0.2\n0 -1 0.2\n-1 0 0.2\n"
 SEVEN_PT = ("0 0 0 0.3\n1 0 0 0.2\n-1 0 0 0.2\n0 1 0 0.2\n"
@@ -299,20 +299,13 @@ def cuda_source_of(text):
 
 
 def literals_of(cuda):
-    """(float literal, tap offset) of every tap of ``level_quad`` in the
-    order of its lines; each line feeds the quad's four outputs with one
-    literal."""
-    body = cuda.split("float4 level_quad(")[1].split("return make_float4")[0]
+    """(float literal, tap offset) of every tap of the level function in
+    the order of its lines; each line feeds the quad's four outputs with
+    one literal."""
     taps = []
-    for line in body.splitlines():
-        lits = re.findall(r"a(\d) = fmaf\((\S+f), [\w.\[\]]+, a(\d)\);", line)
-        if lits:
-            assert [(a, b) for a, _, b in lits] == [(str(j), str(j))
-                                                    for j in range(4)]
-            assert len({lit for _, lit, _ in lits}) == 1
-            off = tuple(int(v) for v in re.search(
-                r"// \((.*)\)$", line).group(1).split(","))
-            taps.append((lits[0][1], off))
+    for lits, off in tap_lines(cuda):
+        assert len(set(lits)) == 1
+        taps.append((lits[0], off))
     return taps
 
 
@@ -388,8 +381,8 @@ def test_float_literals_are_the_library_float32_coefficients(index):
         assert np.float32(emit_mod.literal_value(lit)) == np.float32(c)
         assert at == tuple(off)         # the table's sorted order
     # one fmaf line per tap (four outputs each), not per tap per level
-    assert cuda.count("a0 = fmaf(") == len(plan.coeffs)
-    assert cuda.count("level_quad(") == plan.levels + 1
+    assert cuda.count("= fmaf(") == 4 * len(plan.coeffs)
+    assert cuda.count(level_fn(cuda)[0] + "(") == plan.levels + 1
 
 
 def test_float32_literal_round_trips():
