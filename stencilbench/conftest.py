@@ -1,7 +1,7 @@
 """Test settings of the benchmark: the ``card`` marker, the fixture that
 skips a card test where there is no CUDA card, and a small copy of the
-benchmark for the CPU tests, which also holds the deferred cells: the
-return cell and the four-card cell."""
+benchmark for the CPU tests, which also holds the deferred cell: the
+return cell."""
 
 import json
 import os
@@ -15,23 +15,16 @@ SHARDED = "3d7pt_star-3072x2048x2048.solve48"
 # grids small enough for the port's plain CPU path; the four-card grid in
 # four blocks of 32 planes, so that its crops are cut inside the grid
 SMALL = {"2d25pt_box": [96, 80], "3d7pt_star": [28, 24, 20],
-         "3d7pt_star-3072x2048x2048": [128, 24, 20]}
+         "3d7pt_star-3072x2048x2048": [128, 24, 20],
+         "2d25pt_box-bf16": [96, 80], "3d7pt_star-bf16": [28, 24, 20]}
 # The return cell's entries: its files (the ``return48`` mix, its limits,
 # the ``solve_p95_ms`` and ``readback_ms`` readers) are in the folder, and
 # the tests drive it in a copy; BENCHMARK.json leaves it out until its p95
 # is steady enough for a bound.
-# The four-card cell's entries: its files (the configuration, its limits
-# and box, the ``exchange_ms`` reader) are in the folder; BENCHMARK.json
-# leaves it out while the port refuses its slabs of more than 2**31 cells.
 DEFERRED = {
     "workloads": [{"name": "2d25pt_box.return48", "config": "2d25pt_box",
                    "traffic": "return48", "chips": 1,
-                   "why": "each result read back through final_a"},
-                  {"name": SHARDED, "config": "3d7pt_star-3072x2048x2048",
-                   "traffic": "solve48", "chips": 4,
-                   "why": "3072x2048x2048 in 768-plane slabs on four cards, "
-                          "one client, back to back: the shard kernels and "
-                          "the halo exchange over NVLink"}],
+                   "why": "each result read back through final_a"}],
     "end_to_end": [{"name": "solve_p95_ms", "unit": "ms", "better": "lower",
                     "bound": 0.25, "source": "host_clock",
                     "workloads": ["2d25pt_box.return48"]}],
@@ -39,16 +32,8 @@ DEFERRED = {
                    "source": "host_clock",
                    "layer": "runner (ops/runner.final_a)",
                    "moves": "solve_p95_ms",
-                   "workloads": ["2d25pt_box.return48"]},
-                  {"name": "exchange_ms", "unit": "ms", "better": "lower",
-                   "source": "device_trace",
-                   "layer": "parallel (parallel/stream_shard.HaloExchange)",
-                   "moves": "gstencil_s", "workloads": [SHARDED]}],
+                   "workloads": ["2d25pt_box.return48"]}],
 }
-# the deferred cells that metrics already in BENCHMARK.json would list
-DEFERRED_IN = {name: [SHARDED] for name in (
-    "gstencil_s", "kernel_roofline_pct", "kernel_ms_per_step",
-    "device_idle_pct")}
 
 
 def pytest_configure(config):
@@ -68,9 +53,8 @@ def card():
 
 
 def copy_bench(dest, dims=None):
-    """A copy of ``BENCHMARK.json``, with the ``DEFERRED`` entries added
-    (and ``DEFERRED_IN``'s cells to the metrics that list them), and of the
-    benchmark's folder under ``dest``, each configuration's grid
+    """A copy of ``BENCHMARK.json``, with the ``DEFERRED`` entries added,
+    and of the benchmark's folder under ``dest``, each configuration's grid
     set to ``dims[config]``; returns the copy's folder."""
     root = os.path.join(dest, "stencilbench")
     shutil.copytree(HERE, root, ignore=shutil.ignore_patterns(
@@ -79,9 +63,6 @@ def copy_bench(dest, dims=None):
         bench = json.load(f)
     for key, entries in DEFERRED.items():
         bench[key] += entries
-    for metric in bench["end_to_end"] + bench["per_layer"]:
-        metric.get("workloads", []).extend(DEFERRED_IN.get(metric["name"],
-                                                           []))
     with open(os.path.join(dest, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
     for name, shape in (dims or {}).items():

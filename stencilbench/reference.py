@@ -86,17 +86,34 @@ def apply(src: torch.Tensor, dst: torch.Tensor,
 
 
 def solve(field: torch.Tensor, taps: Dict[Offset, float], step: int,
-          pairs: int) -> torch.Tensor:
+          pairs: int, dtype=torch.float64, store=None) -> torch.Tensor:
     """``a`` after ``pairs`` ping-pong pairs of the ``step``-fused operator
-    from the initial field, in fp64 on the field's device."""
+    from the initial field, in ``dtype`` (fp64 unless a control asks for
+    less) on the field's device. ``store``, where given, rounds the state in
+    place: the input once, then each application's destination, as a state
+    held in a narrower type is rounded at each store."""
     fused = fuse(taps, step)
     h = frame(fused)
-    a = field.to(torch.float64, copy=True)
+    keep = store or (lambda t: t)
+    a = keep(field.to(dtype, copy=True))
     b = torch.zeros_like(a)
     for _ in range(pairs):
         apply(a, b, fused, h)
+        keep(b)
         apply(b, a, fused, h)
+        keep(a)
     return a
+
+
+def round_bits_(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """``x`` rounded in place to ``bits`` significant bits, to nearest even,
+    with the exponent unbounded: float8 e4m3's precision (``bits=4``)
+    without its range, which the field outgrows. ``x`` is fp32 or fp64;
+    zero, the sign and magnitudes from 2**-100 to 2**100 are kept."""
+    m, e = torch.frexp(x)
+    # m in [0.5, 1): ``bits`` bits are the integers in [2**(bits-1), 2**bits)
+    m.mul_(2 ** bits).round_().div_(2 ** bits)
+    return x.copy_(torch.ldexp(m, e))
 
 
 def max_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:

@@ -20,7 +20,9 @@ def test_pairs_and_computed_timesteps(step):
 
 
 @pytest.mark.parametrize("config,taps,gflop,gbyte", [
-    ("2d25pt_box", 25, 157.8, 0.537), ("3d7pt_star", 7, 83.75, 1.074)])
+    ("2d25pt_box", 25, 157.8, 0.537), ("3d7pt_star", 7, 83.75, 1.074),
+    ("2d25pt_box-bf16", 25, 157.8, 0.2684),
+    ("3d7pt_star-bf16", 7, 83.75, 0.537)])
 def test_roofline_count_per_request(config, taps, gflop, gbyte):
     conf = cells.load_json(cells.ROOT, "configs", config)
     dims, table = reference.load_stc(f"{cells.ROOT}/configs/{conf['stc']}")
