@@ -42,8 +42,9 @@ flags; a later process finds the library on disk; about 6 s per plan).
 started together; callers that know their plans ahead use it.  A failed
 build raises with the compiler's log; nothing falls back.
 :func:`plan_counters` counts the plan cache's disk hits, builds and seconds,
-and the plans it made or found that keep register windows or feed their
-source planes by TMA.
+the plans it made or found that keep register windows, feed their source
+planes by TMA, accumulate partial sums or apply block-fused levels, and the
+flops and cell-steps of the levels kernels' launches.
 
 Each streaming kernel runs on float32 and on bfloat16 state: the bf16
 build loads as fp32, computes every level in fp32 and rounds once at the
@@ -63,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import math
 import os
 import re
 import shutil
@@ -117,7 +119,11 @@ class LevelTaps:
     reaching ``reach`` cells, with the frozen frame ``frame`` =
     ``levels * reach`` on every axis.  ``segment`` and ``column`` are the
     CTA's tile where the config names it (``KernelConfig.tm`` / ``ch``;
-    ``codegen.geometry``), ``None`` for the generator's choice."""
+    ``codegen.geometry``), ``None`` for the generator's choice.  ``block``
+    is the timesteps one level advances: 1 for the base table, the block of
+    a block-step fused table ``fuse(base, block)`` (K7), the step for the
+    one level of the whole coefficient-fused operator (K1); the text does
+    not depend on it."""
 
     offsets: np.ndarray
     coeffs: np.ndarray
@@ -126,10 +132,26 @@ class LevelTaps:
     frame: int
     segment: Optional[int] = None
     column: Optional[int] = None
+    block: int = 1
 
     @property
     def ndim(self) -> int:
         return self.offsets.shape[1]
+
+    @property
+    def timesteps(self) -> int:
+        """Timesteps one launch advances."""
+        return self.levels * self.block
+
+    @property
+    def block_fused(self) -> bool:
+        """Whether the levels, more than one, apply a block-step fused
+        operator (``KernelConfig.block > 1``: block-hybrid K7)."""
+        return self.block > 1 and self.levels > 1
+
+    def level_flops(self) -> Tuple[int, ...]:
+        """Flops one output cell of each level costs: ``2 * taps - 1``."""
+        return (2 * len(self.coeffs) - 1,) * self.levels
 
 
 @dataclass(frozen=True)
@@ -151,11 +173,25 @@ class FactorTaps:
     column: Optional[int] = None
 
     ndim = 2
+    block_fused = False
 
     @property
     def taps_per_step(self) -> int:
         """|V1| + |V2| + |R|: the taps one timestep applies per cell."""
         return sum(len(c) for _, c in (self.v1, self.v2, self.r))
+
+    @property
+    def timesteps(self) -> int:
+        """Timesteps one launch advances: a V1 and a V2 level each."""
+        return self.levels // 2
+
+    def level_flops(self) -> Tuple[int, ...]:
+        """Flops one output cell of each level costs: ``2 * |V1| - 1`` on
+        a V1 level; on a V2 level its table's and R's chains, joined by one
+        add, ``2 * (|V2| + |R|) - 1``."""
+        v1 = 2 * len(self.v1[1]) - 1
+        v2r = 2 * (len(self.v2[1]) + len(self.r[1])) - 1
+        return tuple(v1 if t % 2 else v2r for t in range(1, self.levels + 1))
 
 
 def sm_count(device=None) -> int:
@@ -303,18 +339,56 @@ def build():
 
 # -- the per-plan kernels -------------------------------------------------------
 
+class LaunchWork:
+    """The arithmetic of one launch of a levels or factor plan, from its
+    ``codegen.Geometry``: the flops of every cell its levels compute,
+    trapezoid recompute included, and the cell-steps it stores (the
+    counters ``flops`` and ``cell_steps``).  In a segment of ``n0`` stored
+    rows (planes) of axis 0, level ``t`` computes the rows ``[t * reach,
+    n0 + 2 * frame - t * reach)`` of the segment's window (a factor plan's
+    V2 levels below the last one row more, ``Geometry.tail``), each row
+    the plane cells of ``Geometry.level_region(t)``, in every column of the
+    grid; a cell costs its level's ``level_flops``.  ``whole`` is the
+    counts of a launch that stores the whole interior."""
+
+    def __init__(self, taps, g: codegen.Geometry):
+        H, r, L = g.frame, g.reach, g.levels
+        self._segment = g.tile[0]
+        self._per_row = self._per_segment = 0
+        for t, flops in enumerate(taps.level_flops(), 1):
+            _, rows, _, quads = g.level_region(t)
+            cells = flops * g.n_columns * rows * codegen.QUAD * quads
+            past = g.tail if g.factor and t % 2 == 0 and t < L else 0
+            self._per_row += cells
+            self._per_segment += cells * (2 * H - 2 * t * r + past)
+        self._stored = taps.timesteps * math.prod(
+            d - 2 * H for d in g.dims[1:])
+        self.whole = self.counts(g.interior)
+
+    def counts(self, rows: int) -> Tuple[int, int]:
+        """``(flops, cell_steps)`` of a launch that stores ``rows`` rows
+        (planes) of axis 0, cut into segments of ``Geometry.tile[0]``."""
+        segments = -(-rows // self._segment)
+        return (rows * self._per_row + segments * self._per_segment,
+                rows * self._stored)
+
+
 class PlanKernel:
     """One plan's kernel: its text, its geometry (``codegen.Geometry``, or
     ``codegen.TileGeometry`` for ``tile2d_fused``), where its library lies,
     and, once loaded, its ``launch``.  ``build_log`` is what nvcc printed
     when the library was built (kept beside it, so a later process reads
     it too); ``build_seconds`` is None when the library was found on
-    disk."""
+    disk.  ``work`` is a levels or factor plan's :class:`LaunchWork` (made
+    from ``taps``; None for ``tile2d_fused``), ``block_fused`` whether its
+    levels apply a block-step fused operator."""
 
-    def __init__(self, text: str, geometry, shard: bool):
+    def __init__(self, text: str, geometry, shard: bool, taps=None):
         self.text = text
         self.geometry = geometry
         self.shard = shard
+        self.work = None if taps is None else LaunchWork(taps, geometry)
+        self.block_fused = bool(getattr(taps, "block_fused", False))
         self.stem = "plan_" + codegen.source_hash(text)
         stem = os.path.join(PLAN_DIR, self.stem)
         self.path, self.source, self.log_path = (stem + ".so", stem + ".cu",
@@ -357,6 +431,8 @@ class PlanKernel:
                 _COUNTERS.add(partial_2d=1)
             if self.tma:
                 _COUNTERS.add(tma_3d=1)
+            if self.block_fused:
+                _COUNTERS.add(block_fused=1)
             lib = ctypes.CDLL(self.path)
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.launch.argtypes = ([ptr, ptr] + [i32] * (2 * self.shard)
@@ -383,10 +459,17 @@ class PlanKernel:
         return int(count())
 
     def launch(self, src_ptr: int, dst_ptr: int, store, stream: int) -> None:
+        """Launch on the buffers at ``src_ptr`` and ``dst_ptr``, storing the
+        axis-0 range ``store`` (a shard build's ``(lo, hi)``, else ``()``);
+        a levels or factor plan adds its :class:`LaunchWork` to the
+        counters."""
         err = self._lib.launch(src_ptr, dst_ptr, *store, stream)
         if err:
             raise RuntimeError("plan kernel launch failed: "
                                + self._lib.error_string(err).decode())
+        if self.work is not None:
+            _COUNTERS.add_launch(*(self.work.counts(store[1] - store[0])
+                                   if store else self.work.whole))
 
     def ctas_per_sm(self):
         """CTAs an SM holds of this build by its registers (the ``ptxas``
@@ -427,12 +510,21 @@ class _PlanCounters:
         with self._lock:
             self._counts = {"disk_hits": 0, "builds": 0, "plan_s": 0.0,
                             "windowed_2d": 0, "windowed_3d": 0, "tma_3d": 0,
-                            "partial_2d": 0}
+                            "partial_2d": 0, "block_fused": 0, "flops": 0,
+                            "cell_steps": 0}
 
     def add(self, **by) -> None:
         with self._lock:
             for key, value in by.items():
                 self._counts[key] += value
+
+    def add_launch(self, flops: int, cell_steps: int) -> None:
+        """Add one launch's :class:`LaunchWork`: two sums under the lock,
+        without :meth:`add`'s keyword arguments, since it runs on every
+        launch."""
+        with self._lock:
+            self._counts["flops"] += flops
+            self._counts["cell_steps"] += cell_steps
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -470,7 +562,13 @@ def plan_counters() -> dict:
     builds and disk hits whose geometry keeps register windows
     (``codegen.Geometry.window``); ``tma_3d``, those whose text feeds its
     source planes by TMA (``codegen.Geometry.tma``); ``partial_2d``, those
-    whose text accumulates partial sums (``codegen.Geometry.partial``)."""
+    whose text accumulates partial sums (``codegen.Geometry.partial``);
+    ``block_fused``, those whose levels apply a block-step fused operator
+    (``LevelTaps.block_fused``: ``KernelConfig.block > 1``).  Summed over
+    the levels kernels' launches on CUDA tensors (never the plain versions'
+    calls): ``flops``, the arithmetic of the cells their levels computed,
+    trapezoid recompute included, and ``cell_steps``, the cells they stored
+    times the timesteps they advanced (:class:`LaunchWork`)."""
     return _COUNTERS.snapshot()
 
 
@@ -486,7 +584,8 @@ def plan_key(taps, dims, dtype, shard: bool = False,
              sms: Optional[int] = None) -> tuple:
     """What a plan's kernel is specialised to (``taps`` a ``LevelTaps`` or
     a ``FactorTaps``): grid, storage type, shard, tables, levels, reach,
-    the asked segment and column, and the SM count (default
+    the asked segment and column, the timesteps a launch advances (which
+    its counters read and its text does not) and the SM count (default
     :func:`sm_count`)."""
     tables = ((taps.v1, taps.v2, taps.r) if is_factor(taps)
               else ((taps.offsets, taps.coeffs),))
@@ -496,7 +595,7 @@ def plan_key(taps, dims, dtype, shard: bool = False,
                 np.ascontiguousarray(offsets, dtype=np.int32).tobytes(),
                 np.ascontiguousarray(coeffs, dtype=np.float32).tobytes())),
             int(taps.levels), int(taps.reach), taps.segment, taps.column,
-            sm_count() if sms is None else int(sms))
+            int(taps.timesteps), sm_count() if sms is None else int(sms))
 
 
 def _plan(key, make) -> PlanKernel:
@@ -513,7 +612,7 @@ def plan_of(taps, dims, dtype, shard: bool,
     key = plan_key(taps, dims, dtype, shard, sms)
     return _plan(key, lambda: PlanKernel(
         codegen.cuda_source(taps, key[1], key[2], key[3], sms=key[-1]),
-        codegen.geometry(taps, key[1], key[-1]), key[3]))
+        codegen.geometry(taps, key[1], key[-1]), key[3], taps))
 
 
 def tile2d_plan(taps: "Tile2dTaps", shape, tm: int,

@@ -170,7 +170,8 @@ def level_plan(an: Analysis, cfg: KernelConfig):
     tap table, how many levels, and each level's reach ``H / L`` — a
     ``LevelTaps``, or a ``FactorTaps`` for ``cfg.factor`` — carrying the
     CTA's segment ``cfg.tm`` and column ``cfg.ch`` (``codegen.geometry``
-    checks them against a grid)."""
+    checks them against a grid) and the timesteps a level advances
+    (``LevelTaps.block``, which the plan counters read)."""
     check_geometry(an)
     state_dtype(cfg.dtype)
     for knob in ("tm", "ch"):
@@ -199,12 +200,13 @@ def level_plan(an: Analysis, cfg: KernelConfig):
             )
     if plan is not None:
         return dataclasses.replace(plan, segment=cfg.tm, column=cfg.ch)
+    # taps, and the timesteps one level of them advances
     if s_levels == 1:
-        taps = an.fused
+        taps, block = an.fused, an.step
     elif cfg.block > 1:
-        taps = fuse(an.spec.taps, cfg.block)
+        taps, block = fuse(an.spec.taps, cfg.block), cfg.block
     else:
-        taps = an.spec.taps
+        taps, block = an.spec.taps, 1
     h = an.halo
     reach = h // s_levels
     assert reach * s_levels == h, "fused halo must be levels*level reach"
@@ -215,7 +217,8 @@ def level_plan(an: Analysis, cfg: KernelConfig):
             f"{len(coeffs)} taps per level exceed the kernels' table of "
             f"{kernels.MAX_TAPS}; use trapezoid levels instead")
     return LevelTaps(offsets=offsets, coeffs=coeffs, levels=s_levels,
-                     reach=reach, frame=h, segment=cfg.tm, column=cfg.ch)
+                     reach=reach, frame=h, segment=cfg.tm, column=cfg.ch,
+                     block=block)
 
 
 def build_stream_kernel(an: Analysis, cfg: KernelConfig, device=None,
