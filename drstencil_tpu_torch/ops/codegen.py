@@ -90,15 +90,26 @@ Design (:func:`geometry` makes every choice once, in a :class:`Geometry`):
   four falls back to cell-wise access.  Source planes arrive by one of
   three feeds (:class:`Feed`), chosen in :func:`geometry`:
 
-  - :class:`CpAsyncFeed`, for a windowed strip on whole quads: each thread
-    copies its quads ``AHEAD_2D`` rows ahead by ``cp.async`` into a staging
-    ring in the state's type (a strip's row is 2 KB, and tens of KB must be
-    in flight per SM to keep device memory busy);
   - :class:`TmaFeed`, for a windowed 3D plan whose rows are whole 16-byte
     pieces in both types (``_feed_3d``; one CTA an SM, so no other CTA
     hides a fetch): one thread asks the copy engine for each plane as one
     box of a 3D tensor map (zeros outside the domain) up to ``AHEAD_3D``
-    steps ahead, into slots behind mbarriers; each thread reads its quad;
+    steps ahead, into slots behind mbarriers; each thread reads its quad.
+    A windowed 2D plan not in factor mode takes it too where its staged
+    row, the row's start and the grid's rows are whole 16-byte pieces in
+    both types and the shared memory holds four CTAs an SM (``_feed_2d``):
+    one thread asks for each row as one box of a 2D tensor map of 8-byte
+    elements seven rows ahead, in place of every thread's ``cp.async``
+    request (its address, bounds tests and zero fill, the commits and
+    waits, a slot by a modulo by 9), into eight slots, a row's slot a mask
+    of its index; the threads stage the row as the ``cp.async`` feed's do,
+    into the ring slot that the partial-sum text's unrolled step names;
+  - :class:`CpAsyncFeed`, for every other windowed strip on whole quads
+    (factor mode's, whose steps are not unrolled; a halo or a grid width
+    of 4 cells modulo 8; three CTAs an SM or fewer): each
+    thread copies its quads ``AHEAD_2D`` rows ahead by ``cp.async`` into a
+    staging ring in the state's type (a strip's row is 2 KB, and tens of KB
+    must be in flight per SM to keep device memory busy);
   - :class:`RegisterFeed`, for every other plan: each thread fetches its
     quads of the next plane into registers before the levels and stages
     them after (a plane is 8 KB or more; the rings leave no room for more).
@@ -147,6 +158,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import string
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -179,9 +191,9 @@ WINDOW_REGS = 96
 THREADS_3D_WINDOW = 1024
 REGS_BESIDE_WINDOWS = 40
 REGISTER_FILE = 65536
-# 2D with register windows: rows requested ahead of their use by cp.async:
-# a strip's row is 2 KB, and an SM needs tens of KB in flight to keep device
-# memory busy
+# 2D with register windows: rows requested ahead of their use by cp.async
+# (by TMA one fewer, in a power of two of slots): a strip's row is 2 KB, and
+# an SM needs tens of KB in flight to keep device memory busy
 AHEAD_2D = 8
 # 3D with register windows: at most this many source planes requested ahead
 # of their use by TMA, in AHEAD_3D + 1 slots (fewer where shared memory holds
@@ -251,6 +263,14 @@ def _stage_fn(comment: str, name: str, arg: str, value: str):
             "      *reinterpret_cast<float4*>(plane + 4 * i) = raw_to_f32("
             f"{value});",
             "  }", "}", ""]
+
+
+def _stage_arrived():
+    """The helper that stages a thread's own quads of a plane landed in a
+    staging slot (:class:`CpAsyncFeed`, a 2D :class:`TmaFeed`)."""
+    return _stage_fn("// Stage the thread's own quads of an arrived plane "
+                     "into a ring slot as fp32.", "stage_arrived",
+                     "const Raw* __restrict__ slot", "slot[i]")
 
 
 @dataclass(frozen=True)
@@ -383,10 +403,7 @@ class CpAsyncFeed(Feed):
                 "* N + gx : src,",
                 "                            sizeof(Raw), in ? 0 : "
                 "sizeof(Raw));",
-                "  }", "}", ""] + _stage_fn(
-            "// Stage the thread's own quads of an arrived plane into a ring "
-            "slot as fp32.", "stage_arrived", "const Raw* __restrict__ slot",
-            "slot[i]")
+                "  }", "}", ""] + _stage_arrived()
 
     def prologue(self, g, end: str, bf16: bool, mine):
         return ["  Raw* const staging = reinterpret_cast<Raw*>(",
@@ -411,14 +428,15 @@ class CpAsyncFeed(Feed):
                 "    __pipeline_commit();"]
 
 
-# The TMA feed's device helpers and the host's encoder of a 3D tensor map,
-# between the markers that the tests' g++ emulation replaces with its own
-# (tests/cuda_emulation/bulk_copy.h); then request_plane, which asks for one
-# plane of a segment's window.
-_TMA_TEXT = r"""// ---- TMA bulk copy and mbarrier (PTX) ----------------------------------------
+# The TMA feed's device helpers and the host's encoder of a tensor map of the
+# source, between the markers that the tests' g++ emulation replaces with its
+# own (tests/cuda_emulation/bulk_copy.h); then request_plane, which asks for
+# one plane (row) of a segment's window.  A 3D map's cells are the state's; a
+# 2D map's are 8-byte elements, so that a strip's row (up to 512 fp32 cells,
+# where a box takes at most TMA_BOX of its cells a row) is one box.
+_TMA_TEXT = string.Template(r"""// ---- TMA bulk copy and mbarrier (PTX) ----------------------------------------
 #include <cuda.h>  // CUtensorMap; the CUDA driver API is reached through the runtime
-// Describe the (dims[2], dims[1], dims[0]) array at `base` of `elem`-byte cells (2: bf16,
-// 4: fp32) to the copy engine, in boxes of box[0] x box[1] x box[2] cells (x first),
+// Describe the $shape array at `base` of `elem`-byte cells ($cells_are to the copy engine, in boxes of $box cells (x first),
 // unswizzled; a cell outside the array reads 0.  The encoder is the CUDA driver API's,
 // found through the runtime, so nothing links against libcuda.
 typedef CUresult (*encode_fn)(
@@ -426,8 +444,8 @@ typedef CUresult (*encode_fn)(
     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
-static int tma_encode_3d(CUtensorMap* map, const void* base, int elem,
-                         const unsigned long long dims[3], const unsigned box[3]) {
+static int tma_encode_${rank}d(CUtensorMap* map, const void* base, int elem,
+                         const unsigned long long dims[$rank], const unsigned box[$rank]) {
   static encode_fn encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -439,12 +457,12 @@ static int tma_encode_3d(CUtensorMap* map, const void* base, int elem,
       return (int)cudaErrorNotSupported;
     encode = (encode_fn)fn;
   }
-  const cuuint64_t size[3] = {dims[0], dims[1], dims[2]};
-  const cuuint64_t strides[2] = {dims[0] * elem, dims[0] * dims[1] * elem};  // bytes
-  const cuuint32_t cells[3] = {box[0], box[1], box[2]};
-  const cuuint32_t steps[3] = {1, 1, 1};
+  const cuuint64_t size[$rank] = {$size};
+  const cuuint64_t strides[$strides_n] = {$strides};  // bytes
+  const cuuint32_t cells[$rank] = {$cells};
+  const cuuint32_t steps[$rank] = {$steps};
   const CUresult r = encode(
-      map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+      map, $data_type, $rank,
       const_cast<void*>(base), size, strides, cells, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -467,14 +485,14 @@ __device__ __forceinline__ void tma_bar_expect(uint64_t* bar, unsigned bytes) {
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
-// Copy the box of `map` whose first cell is (x, y, z) into `dst` (128-byte aligned),
+// Copy the box of `map` whose first cell is ($coords) into `dst` (128-byte aligned),
 // rows packed; its bytes are counted on `bar`.
-__device__ __forceinline__ void tma_copy_3d(void* dst, const CUtensorMap* map, int x, int y,
-                                            int z, uint64_t* bar) {
+__device__ __forceinline__ void tma_copy_${rank}d(void* dst, const CUtensorMap* map, int x, int y,
+                                            ${z}uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+      "cp.async.bulk.tensor.${rank}d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {$operands}], [%$bar_operand];"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), $coord_args
          "r"(smem_addr(bar)) : "memory");
 }
 
@@ -491,19 +509,47 @@ __device__ __forceinline__ void tma_bar_wait(uint64_t* bar, unsigned parity) {
 }
 // ---- end of PTX --------------------------------------------------------------
 
-// Ask the copy engine for plane k of the window, plane g0 + k of the source (0 outside
+$request""")
+
+_TMA_RANK = {
+    3: dict(rank=3, shape="(dims[2], dims[1], dims[0])",
+            box="box[0] x box[1] x box[2]", cells_are="2: bf16,\n// 4: fp32)",
+            data_type="elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : "
+                      "CU_TENSOR_MAP_DATA_TYPE_FLOAT32",
+            size="dims[0], dims[1], dims[2]", strides_n=2,
+            strides="dims[0] * elem, dims[0] * dims[1] * elem",
+            cells="box[0], box[1], box[2]", steps="1, 1, 1",
+            coords="x, y, z", z="int z, ", operands="%2, %3, %4",
+            bar_operand=5, coord_args='"r"(x), "r"(y), "r"(z),',
+            request=r"""// Ask the copy engine for plane k of the window, plane g0 + k of the source (0 outside
 // the domain), into slot k % SLOTS: one box, its bytes counted on that slot's barrier.
 __device__ __forceinline__ void request_plane(const CUtensorMap* map, float* slots,
                                               uint64_t* full, int k, int g0, int y0, int x0) {
   uint64_t* const bar = full + k % SLOTS;
   tma_bar_expect(bar, BOX_BYTES);
   tma_copy_3d(slots + k % SLOTS * SLOT, map, x0, y0, g0 + k, bar);
-}"""
+}"""),
+    2: dict(rank=2, shape="(dims[1], dims[0])", box="box[0] x box[1]",
+            cells_are="8: two fp32 or four\n// bf16 cells of a row)",
+            data_type="CU_TENSOR_MAP_DATA_TYPE_INT64",
+            size="dims[0], dims[1]", strides_n=1, strides="dims[0] * elem",
+            cells="box[0], box[1]", steps="1, 1", coords="x, y", z="",
+            operands="%2, %3", bar_operand=4, coord_args='"r"(x), "r"(y),',
+            request=r"""// Ask the copy engine for row k of the window, row g0 + k of the source (0 outside the
+// domain), into slot k & (SLOTS - 1): one box of BOX 8-byte elements, its bytes counted
+// on that slot's barrier.
+__device__ __forceinline__ void request_plane(const CUtensorMap* map, float* slots,
+                                              uint64_t* full, int k, int g0, int x0) {
+  uint64_t* const bar = full + (k & (SLOTS - 1));
+  tma_bar_expect(bar, ROW_BYTES);
+  tma_copy_2d(slots + (k & (SLOTS - 1)) * SLOT, map, x0 * (int)sizeof(T) / 8, g0 + k, bar);
+}"""),
+}
 
 
 # The host's tensor maps of the source (a map holds its buffer's address);
 # maps_encoded counts the maps encoded.
-_MAP_CACHE_TEXT = r"""// The source's tensor map, encoded once a buffer and kept (a ping-pong pair needs two):
+_MAP_CACHE_TEXT = string.Template(r"""// The source's tensor map, encoded once a buffer and kept (a ping-pong pair needs two):
 // at most MAPS_KEPT, the oldest replaced first.
 constexpr int MAPS_KEPT = 16;
 static const void* g_map_src[MAPS_KEPT];
@@ -518,10 +564,10 @@ static int source_map(const void* src, CUtensorMap* map) {
       return 0;
     }
   const int k = (int)(g_maps_encoded % MAPS_KEPT);
-  const unsigned long long dims[3] = {N, M, D};
-  const unsigned box[3] = {BX, EY, 1};
+  const unsigned long long dims[$rank] = {$dims};
+  const unsigned box[$rank] = {$box};
   g_map_src[k] = nullptr;
-  const int err = tma_encode_3d(&g_maps[k], src, (int)sizeof(T), dims, box);
+  const int err = tma_encode_${rank}d(&g_maps[k], src, $elem, dims, box);
   if (err) return err;
   g_map_src[k] = src;
   ++g_maps_encoded;
@@ -529,24 +575,48 @@ static int source_map(const void* src, CUtensorMap* map) {
   return 0;
 }
 
-extern "C" long long maps_encoded() { return g_maps_encoded; }"""
+extern "C" long long maps_encoded() { return g_maps_encoded; }""")
+_MAP_RANK = {3: dict(rank=3, dims="N, M, D", box="BX, EY, 1",
+                     elem="(int)sizeof(T)"),
+             2: dict(rank=2, dims="N * sizeof(T) / 8, M", box="BOX, 1",
+                     elem="8")}
 
 
 @dataclass(frozen=True)
 class TmaFeed(Feed):
-    """Source planes copied whole ``ahead`` steps ahead by TMA (*Feeds*);
-    each thread reads its own quad, so only a windowed 3D plan, whose
-    threads write the ring themselves, takes it (no ``stage``)."""
+    """Source planes copied whole ``ahead`` steps ahead by TMA (*Feeds*),
+    one thread asking for each: in 3D (``ndim`` 3) a plane is one box of a
+    3D tensor map and each thread reads its own quad of the slot before the
+    levels, since a windowed 3D thread writes the ring itself; in 2D a
+    strip's row is one box of a 2D tensor map of 8-byte elements, which
+    the issuing thread sees land a step ahead, before its levels, and the
+    threads stage from the slot after the levels as :class:`CpAsyncFeed`'s
+    stage their rows."""
+
+    ndim: int = 3
 
     includes = ("cuda_bf16.h", "cuda_runtime.h", "stddef.h", "mutex")
     source = "const __grid_constant__ CUtensorMap map"
     align = "__align__(128) "
-    own = "raw_to_f32(own)"
-    host = tuple(_MAP_CACHE_TEXT.split("\n")) + ("",)
     launch = ("  CUtensorMap map;",
               "  err = (cudaError_t)source_map(src, &map);",
               "  if (err != cudaSuccess) return (int)err;")
     launch_source = "map"
+    # 2D: row s landed before the last barrier; its ring slot is its step's
+    # place u among the unrolled ones (s0 is a multiple of RING)
+    stage = ("      // row s landed before the last barrier",
+             "      const Raw* const slot = reinterpret_cast<const Raw*>(",
+             "          slots + (s & (SLOTS - 1)) * SLOT);",
+             "      stage_arrived(smem + u * PLANE, slot);")
+
+    @property
+    def own(self) -> str:
+        return "raw_to_f32(own)" if self.ndim == 3 else "raw_to_f32(slot[q])"
+
+    @property
+    def host(self):
+        return tuple(_MAP_CACHE_TEXT.substitute(_MAP_RANK[self.ndim])
+                     .split("\n")) + ("",)
 
     @staticmethod
     def slot_bytes(plane: int) -> int:
@@ -558,8 +628,10 @@ class TmaFeed(Feed):
         return 4 * _ceil_to(rings, 32) + self.staging * self.slot_bytes(plane)
 
     def constants(self, g, bf16: bool):
-        o = [f"constexpr int AHEAD = {self.ahead};  // source planes "
-             "requested ahead of their use (TMA)",
+        d3 = self.ndim == 3
+        o = [f"constexpr int AHEAD = {self.ahead};  // source "
+             f"{'planes' if d3 else 'rows'} requested ahead of their use "
+             "(TMA)",
              "constexpr int SLOTS = AHEAD + 1;  // where they land, sized for "
              "fp32",
              "// a slot's floats and the first slot's offset: whole 128 "
@@ -567,6 +639,20 @@ class TmaFeed(Feed):
              "constexpr int SLOT = (PLANE + 31) / 32 * 32;",
              "constexpr int FEED = (2 * GUARD + LEVELS * RING * PLANE + 31) / "
              "32 * 32;"]
+        if not d3:
+            return o + [
+                "// a row is one box of 8-byte elements (x0 and EX are "
+                "multiples of 8 cells: whole",
+                "// 16 bytes in either type), its bytes on its slot's barrier",
+                "constexpr int BOX = EX * (int)sizeof(T) / 8;",
+                f"static_assert(BOX <= {TMA_BOX}, \"one box a row\");",
+                "static_assert((SLOTS & (SLOTS - 1)) == 0,",
+                "              \"a row's slot is a mask of its index\");",
+                "constexpr unsigned ROW_BYTES = EX * sizeof(T);",
+                "// the rings, the slots, and an mbarrier a slot",
+                "constexpr size_t SMEM_BYTES =",
+                "    (size_t)(FEED + SLOTS * SLOT) * sizeof(float) + "
+                "SLOTS * sizeof(uint64_t);"]
         if bf16:
             o += ["// a box starts on a whole 16 bytes of the source: at x0 "
                   "rounded down to 8 cells,",
@@ -582,21 +668,29 @@ class TmaFeed(Feed):
                     "SLOTS * sizeof(uint64_t);"]
 
     def helpers(self, g, bf16: bool):
-        return _TMA_TEXT.split("\n") + [""]
+        o = _TMA_TEXT.substitute(_TMA_RANK[self.ndim]).split("\n") + [""]
+        return o if self.ndim == 3 else o + _stage_arrived()
 
     def prologue(self, g, end: str, bf16: bool, mine):
-        o = mine + [
+        d3 = self.ndim == 3
+        unit = "plane" if d3 else "row"
+        o = mine + ([
             "  // plane k of the window [a0 - H, a1 + H) lands in slot k % "
             "SLOTS, whose barrier",
             "  // full[k % SLOTS] counts its bytes; the last thread, in the "
             "warp with the fewest quads,",
             "  // asks for each plane AHEAD steps before its use and sees it "
-            "land a step before",
-            "  float* const slots = reinterpret_cast<float*>(smem4) + FEED;",
-            "  uint64_t* const full = reinterpret_cast<uint64_t*>(slots + "
-            "SLOTS * SLOT);",
-            "  const bool issuer = i == THREADS - 1;"]
-        if bf16:
+            "land a step before"] if d3 else [
+            "  // row k of the window [a0 - H, a1 + H) lands in slot k & "
+            "(SLOTS - 1), whose barrier",
+            "  // counts its bytes; the last thread asks for each row AHEAD "
+            "steps before its use and",
+            "  // sees it land a step before"])
+        o += ["  float* const slots = reinterpret_cast<float*>(smem4) + FEED;",
+              "  uint64_t* const full = reinterpret_cast<uint64_t*>(slots + "
+              "SLOTS * SLOT);",
+              f"  const bool issuer = {'i' if d3 else 'q'} == THREADS - 1;"]
+        if bf16 and d3:
             o += ["  // a box's first column: x0 rounded down to 8 cells, xs "
                   "cells before it",
                   "  const int xs = x0 & 7;"]
@@ -604,25 +698,41 @@ class TmaFeed(Feed):
                     "    for (int k = 0; k < SLOTS; ++k) tma_bar_init(full + "
                     "k);",
                     "  __syncthreads();  // the barriers are set up",
-                    "  if (issuer) {  // the first AHEAD planes",
+                    f"  if (issuer) {{  // the first AHEAD {unit}s",
                     f"    for (int k = 0; k < AHEAD && k < {end}; ++k)",
-                    "      request_plane(&map, slots, full, k, a0 - H, y0, "
-                    f"{'x0 - xs' if bf16 else 'x0'});",
-                    "    tma_bar_wait(full, 0u);  // plane 0 has landed",
+                    "      request_plane(&map, slots, full, k, "
+                    f"{self._at(bf16)});",
+                    f"    tma_bar_wait(full, 0u);  // {unit} 0 has landed",
                     "  }",
                     "  __syncthreads();"]
 
+    def _at(self, bf16: bool) -> str:
+        """request_plane's arguments past the plane's index: the window's
+        first plane and the box's corner."""
+        if self.ndim == 2:
+            return "a0 - H, x0"
+        return f"a0 - H, y0, {'x0 - xs' if bf16 else 'x0'}"
+
     def request(self, g, end: str, bf16: bool):
-        o = ["    // plane s + AHEAD, into the slot that plane s - 1 left at "
-             "the last barrier",
+        unit = "plane" if self.ndim == 3 else "row"
+        o = [f"    // {unit} s + AHEAD, into the slot that {unit} s - 1 left "
+             "at the last barrier",
              f"    if (issuer && s + AHEAD < {end})",
-             "      request_plane(&map, slots, full, s + AHEAD, a0 - H, y0, "
-             f"{'x0 - xs' if bf16 else 'x0'});",
-             "    // plane s landed before the last barrier: read the "
-             "thread's quad now, stage it",
-             "    // after the levels",
-             "    Raw own;",
-             "    if (feed && i < PLANE_QUADS)"]
+             f"      request_plane(&map, slots, full, s + AHEAD, "
+             f"{self._at(bf16)});"]
+        if self.ndim == 2:
+            return o + [
+                "    // the issuer sees row s + 1 land before its levels; the "
+                "barrier at the step's end",
+                "    // shows it to every thread",
+                f"    if (issuer && s + 1 < {end})",
+                "      tma_bar_wait(full + ((s + 1) & (SLOTS - 1)), "
+                "(unsigned)(s + 1) / SLOTS & 1u);"]
+        o += ["    // plane s landed before the last barrier: read the "
+              "thread's quad now, stage it",
+              "    // after the levels",
+              "    Raw own;",
+              "    if (feed && i < PLANE_QUADS)"]
         if bf16:
             return o + ["      own = *reinterpret_cast<const Raw*>(",
                         "          reinterpret_cast<const T*>(slots + s % "
@@ -631,6 +741,8 @@ class TmaFeed(Feed):
                     "SLOTS * SLOT)[i];"]
 
     def end_step(self, end: str):
+        if self.ndim == 2:      # the issuer waited before the levels
+            return []
         return ["    // the issuer sees plane s + 1 land; the barrier shows "
                 "it to every thread",
                 f"    if (issuer && s + 1 < {end})",
@@ -904,6 +1016,34 @@ def _feed_3d(dims, ey: int, ex: int, threads: int, regs: int,
             else REGISTERS)
 
 
+def _feed_2d(dims, ex: int, hx: int, rings: int, threads: int) -> Feed:
+    """The feed of a windowed 2D plan on whole quads that is not in factor
+    mode: a :class:`TmaFeed`, or the :class:`CpAsyncFeed` where TMA does
+    not fit or does not pay.  A staged row, ``ex`` cells from ``x0 = k *
+    TX - hx``, is one box of a 2D tensor map of 8-byte elements, so the
+    row, its start and the grid's rows must be whole 16-byte pieces in
+    either state type (``ex``, ``hx`` and the grid's width multiples of 8
+    cells; ``TX = ex - 2 * hx`` then is one too).  Its slots are the
+    largest power of two not above the ``AHEAD_2D + 1`` staging rows of the
+    cp.async feed, so that a row's slot is a mask of its index.  The
+    issuing thread's wait for the next row, once a step, holds up its warp:
+    where the shared memory (``rings`` floats with their guards, and the
+    staging rows or slots) holds four CTAs of ``threads`` an SM or more,
+    the other CTAs' warps cover it; where three, they did not (on the card
+    the 2d25pt_box winner ran 4.3% faster a launch in fp32 and 5.4% in
+    bf16, the six 2D winners at three CTAs an SM 1.0-4.5% slower), and the
+    feed stays cp.async.  It stays so too where the slots, smaller than the
+    staging rows, would admit more CTAs an SM: the segment, sized by them
+    (``_segment``), and the tuner's candidates would move with the feed."""
+    copies = CpAsyncFeed(AHEAD_2D)
+    if dims[-1] % 8 or ex % 8 or hx % 8:
+        return copies
+    tma = TmaFeed((1 << ((AHEAD_2D + 1).bit_length() - 1)) - 1, ndim=2)
+    ctas = {_ctas_by_smem(f.smem_bytes(rings, ex), threads)
+            for f in (tma, copies)}
+    return tma if len(ctas) == 1 and min(ctas) >= 4 else copies
+
+
 def _column_entries(dims, frame: int):
     """(nominal column, x width, staged plane (ey, ex) cut to the grid) of
     every ``STRIP_2D`` strip (2D) or ``COLUMNS_3D`` column (3D), widest
@@ -971,7 +1111,8 @@ def geometry(plan, dims, sms: int = SM_COUNT, segment=None,
         # names each row's slot by its step's place among them
         ring = 2 * r + 1
     # the feed: a windowed strip's rows by cp.async where they are whole
-    # quads, a windowed 3D plan's by _feed_3d, every other by registers
+    # quads (by _feed_2d once the strip is chosen, unless in factor mode), a
+    # windowed 3D plan's by _feed_3d, every other by registers
     feed = CpAsyncFeed(AHEAD_2D) if window and vec else REGISTERS
 
     def rings(ey, ex, ring):
@@ -1022,6 +1163,8 @@ def geometry(plan, dims, sms: int = SM_COUNT, segment=None,
         wlen, dhi = 0, 0
         threads = min(_ceil_to(quads, 32),
                       THREADS_3D if ndim == 3 else STRIP_2D[0] // QUAD)
+    if window and vec and ndim == 2 and not factor:
+        feed = _feed_2d(dims, ex, hx, rings(ey, ex, ring), threads)
     g = Geometry(dims=dims, frame=H, reach=r, levels=L, tile=(1,) + column,
                  hx=hx, ey=ey, ex=ex, ring=ring, threads=threads,
                  min_blocks=1, vec=vec, feed=feed,

@@ -27,7 +27,7 @@ the TPU's Mosaic pipeline; on Hopper they mean:
 - ``prefetch``: a no-op — the Mosaic window-fetch depth (K9).  The
   streamed kernels always stage ahead (``ops/codegen.py``: the next source
   plane is requested before a step's levels and staged after them, a
-  windowed 2D plan's rows ``AHEAD_2D`` steps ahead with ``cp.async``);
+  windowed 2D plan's rows several steps ahead by TMA or ``cp.async``);
   staging where the plane is used measured slower on every tuned winner
   in both dtypes (PERF.md), so the depth is the generator's constant and
   not a knob;

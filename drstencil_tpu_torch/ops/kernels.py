@@ -430,7 +430,7 @@ class PlanKernel:
             if getattr(self.geometry, "partial", False):
                 _COUNTERS.add(partial_2d=1)
             if self.tma:
-                _COUNTERS.add(tma_3d=1)
+                _COUNTERS.add(**{f"tma_{self.geometry.ndim}d": 1})
             if self.block_fused:
                 _COUNTERS.add(block_fused=1)
             lib = ctypes.CDLL(self.path)
@@ -509,9 +509,9 @@ class _PlanCounters:
     def reset(self) -> None:
         with self._lock:
             self._counts = {"disk_hits": 0, "builds": 0, "plan_s": 0.0,
-                            "windowed_2d": 0, "windowed_3d": 0, "tma_3d": 0,
-                            "partial_2d": 0, "block_fused": 0, "flops": 0,
-                            "cell_steps": 0}
+                            "windowed_2d": 0, "windowed_3d": 0, "tma_2d": 0,
+                            "tma_3d": 0, "partial_2d": 0, "block_fused": 0,
+                            "flops": 0, "cell_steps": 0}
 
     def add(self, **by) -> None:
         with self._lock:
@@ -560,8 +560,9 @@ def plan_counters() -> dict:
     :func:`build_plans` (text, hash, ``nvcc``, ``dlopen``), each second
     counted once; ``windowed_2d`` and ``windowed_3d``, the plans of those
     builds and disk hits whose geometry keeps register windows
-    (``codegen.Geometry.window``); ``tma_3d``, those whose text feeds its
-    source planes by TMA (``codegen.Geometry.tma``); ``partial_2d``, those
+    (``codegen.Geometry.window``); ``tma_2d`` and ``tma_3d``, those whose
+    text feeds its source rows or planes by TMA (``codegen.Geometry.tma``);
+    ``partial_2d``, those
     whose text accumulates partial sums (``codegen.Geometry.partial``);
     ``block_fused``, those whose levels apply a block-step fused operator
     (``LevelTaps.block_fused``: ``KernelConfig.block > 1``).  Summed over

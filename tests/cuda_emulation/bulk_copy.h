@@ -88,7 +88,7 @@ static inline void probe_tensor_copy(void* dst, const CUtensorMap* m, int c0, in
   if ((uintptr_t)dst % 16) { fprintf(stderr, "box copy to an unaligned address\n"); abort(); }
   emu_box_copy(dst, m, c0, r0, 0, bar);
 }
-// the plans' TMA feed (ops/codegen's windowed 3D text): the encoder refuses
+// the plans' TMA feed (ops/codegen's windowed 3D and 2D texts): the encoder refuses
 // what the driver's does (an address, a row or a plane stride, or a box row
 // that is no whole 16 bytes; a box wider than 256 cells), a box starts on a
 // whole 16 bytes of the array along x, and it lands 128-byte aligned
@@ -107,4 +107,14 @@ static inline void tma_copy_3d(void* dst, const CUtensorMap* m, int x, int y, in
   if ((uintptr_t)dst % 128) { fprintf(stderr, "box copy to an address not 128-byte aligned\n"); abort(); }
   if ((long long)x * m->elem % 16) { fprintf(stderr, "box copy from x = %d, not on 16 bytes\n", x); abort(); }
   emu_box_copy(dst, m, x, y, z, bar);
+}
+// a 2D map is a 3D map of one plane: its box rows land packed, zero outside the
+// grid (left of x = 0 too), under the same checks
+static inline int tma_encode_2d(CUtensorMap* m, const void* base, int elem, const unsigned long long dims[2], const unsigned box[2]) {
+  const unsigned long long dims3[3] = {dims[0], dims[1], 1};
+  const unsigned box3[3] = {box[0], box[1], 1};
+  return tma_encode_3d(m, base, elem, dims3, box3);
+}
+static inline void tma_copy_2d(void* dst, const CUtensorMap* m, int x, int y, uint64_t* bar) {
+  tma_copy_3d(dst, m, x, y, 0, bar);
 }

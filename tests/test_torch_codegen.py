@@ -179,22 +179,25 @@ def check_text(cuda, plan, dims, dtype, shard):
     else:
         assert c["SMEM_BYTES"] == 4 * (2 * g.guard + kernels.n_buffers(
             plan, dims) * plane)
-    # a ring per level; windowed 2D plans add their staging rows, windowed
-    # 3D plans fed by TMA their slots
+    # a ring per level; windowed 2D plans add their staging rows or TMA
+    # slots, windowed 3D plans fed by TMA their slots
     staging = kernels.n_buffers(plan, dims) - plan.levels * c["RING"]
     # 2D: windowed where the windows fit; 3D: where they fit and free ring
     # planes
     assert g.window == (plan.levels * (2 * plan.reach + 1) * 4
                         <= codegen.WINDOW_REGS and (
                             len(dims) == 2 or shallow < 2 * plan.reach + 2))
-    if g.window and g.vec and len(dims) == 2:
-        assert staging == c["AHEAD"] + 1 == codegen.AHEAD_2D + 1
-        assert "__pipeline_memcpy_async" in cuda and "fetch_plane" not in cuda
-    elif g.tma:
-        assert staging == c["AHEAD"] + 1 == codegen.AHEAD_3D + 1
-        assert "cp.async.bulk.tensor.3d" in cuda
+    if g.tma:
+        # 2D: a power of two of slots, at most the cp.async feed's rows
+        assert staging == c["AHEAD"] + 1 == (
+            codegen.AHEAD_3D + 1 if len(dims) == 3 else 8)
+        assert f"cp.async.bulk.tensor.{len(dims)}d" in cuda
         assert "fetch_plane" not in cuda and "Raw st[" not in cuda
         assert "__pipeline_memcpy_async" not in cuda
+        assert g.partial or g.window3d
+    elif g.window and g.vec and len(dims) == 2:
+        assert staging == c["AHEAD"] + 1 == codegen.AHEAD_2D + 1
+        assert "__pipeline_memcpy_async" in cuda and "fetch_plane" not in cuda
     else:
         assert staging == 0 and "AHEAD" not in c
         assert "__pipeline_memcpy_async" not in cuda

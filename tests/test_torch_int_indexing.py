@@ -58,7 +58,7 @@ MAX_THREADS = 1024
 # codegen.source_hash of the one-card cells' plans at 132 SMs (H100 SXM),
 # fp32: the 2D cell's as the tree measured before the slab limit changed,
 # the 3D cell's since its planes arrive by TMA and its winner is re-tuned
-ONE_CARD_HASHES = {"2d25pt_box": "f43c902dcd28076c",
+ONE_CARD_HASHES = {"2d25pt_box": "35d09af25e2685e7",
                    "3d7pt_star": "e076617eeada1f7a"}
 
 
@@ -238,10 +238,14 @@ def test_global_addresses_are_size_t_and_grids_fit(make):
     tma = getattr(g, "tma", False)     # a tile2d_fused text has no feed
     assert {name for name, _ in offsets} == ({"dst"} if tma
                                              else {"src", "dst"})
-    if tma:
+    if tma and g.ndim == 3:
         assert "const unsigned long long dims[3] = {N, M, D};" in text
         assert ("const cuuint64_t strides[2] = {dims[0] * elem, "
                 "dims[0] * dims[1] * elem};") in text
+    elif tma:       # a 2D map of 8-byte elements
+        assert ("const unsigned long long dims[2] = {N * sizeof(T) / 8, M};"
+                in text)
+        assert "const cuuint64_t strides[1] = {dims[0] * elem};" in text
     for name, expr in offsets:
         assert int_products(expr) == [], f"{name} + {expr.strip()}"
     assert len(g.grid) in (2, 3)

@@ -129,8 +129,12 @@ def follow_chains(cuda):
     W = 2 * r + 1
     assert "constexpr int WINDOW = 2 * REACH + 1;" in cuda
     assert c["RING"] == W
+    # the source row s lands in ring slot s % RING: the TMA feed names it
+    # by the step's place u, equal since the steps go WINDOW at a time
     assert "stage_arrived(smem + (s % RING) * PLANE" in cuda \
-        or "stage_plane(smem + (s % RING) * PLANE" in cuda
+        or "stage_plane(smem + (s % RING) * PLANE" in cuda \
+        or ("stage_arrived(smem + u * PLANE" in cuda
+            and "s0 += WINDOW) {" in cuda)
     sums, _, terms = level_row_of(cuda)
     blocks = schedule_of(cuda)
     assert [b[0] for b in blocks] == list(range(L, 0, -1))

@@ -148,9 +148,9 @@ def plan_taps(name):
 def test_counters_start_at_zero_and_are_a_copy(counters):
     got = kernels.plan_counters()
     assert got == {"disk_hits": 0, "builds": 0, "plan_s": 0.0,
-                   "windowed_2d": 0, "windowed_3d": 0, "tma_3d": 0,
-                   "partial_2d": 0, "block_fused": 0, "flops": 0,
-                   "cell_steps": 0}
+                   "windowed_2d": 0, "windowed_3d": 0, "tma_2d": 0,
+                   "tma_3d": 0, "partial_2d": 0, "block_fused": 0,
+                   "flops": 0, "cell_steps": 0}
     got["builds"] = 9
     assert kernels.plan_counters()["builds"] == 0
 
@@ -166,9 +166,10 @@ def test_plan_of_alone_counts_nothing(counters):
     kernels.plan_of(taps, dims, "bfloat16", False, sms=132)
     assert kernels.plan_counters() == {"disk_hits": 0, "builds": 0,
                                        "plan_s": 0.0, "windowed_2d": 0,
-                                       "windowed_3d": 0, "tma_3d": 0,
-                                       "partial_2d": 0, "block_fused": 0,
-                                       "flops": 0, "cell_steps": 0}
+                                       "windowed_3d": 0, "tma_2d": 0,
+                                       "tma_3d": 0, "partial_2d": 0,
+                                       "block_fused": 0, "flops": 0,
+                                       "cell_steps": 0}
     assert not counters
 
 

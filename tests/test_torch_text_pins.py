@@ -7,8 +7,8 @@ so an unchanged text loads the same binary and keeps its span name.  The
 pins, in ``torch_text_pins.json``:
 
 - each cell's plan in fp32 and bf16: ``2d25pt_box`` ``fu3`` at the
-  generator's tile on 8192² (a windowed 2D plan fed by ``cp.async``, its
-  levels in partial sums), and at the earlier winner's ``tm=132``,
+  generator's tile on 8192² (a windowed 2D plan fed by TMA, its levels in
+  partial sums), and at the earlier winner's ``tm=132``,
   ``3d7pt_star`` at the generator's tile on 512³ (a windowed 3D plan fed
   by TMA), and its shard build on the 776 x 2048 x 2048 slab of the
   four-card cell (``stream_shard.local_analysis`` over four shards, with

@@ -13,10 +13,11 @@ checked under the ``g++`` emulation (``test_torch_codegen.emulated``, whose
 refuses one that does not start on 16 bytes) for the suite's star tables in
 both dtypes, on a grid of several columns and segments, a shard slab, a grid
 narrower than the column, and a window of no more planes than are requested
-ahead.  Grids whose rows are not whole 16-byte pieces in bf16, the ring 3D
-tables and the 2D texts keep their texts byte for byte.  Then the host's
-map cache (two maps for a ping-pong pair however many launches), the plan
-counter ``tma_3d`` and the wrapper's ``maps_encoded``.
+ahead.  Grids whose rows are not whole 16-byte pieces in bf16 and the ring 3D
+tables keep their texts byte for byte, and the 2D texts do not depend on
+``AHEAD_3D``.  Then the host's map cache (two maps for a ping-pong pair
+however many launches), the plan counter ``tma_3d`` and the wrapper's
+``maps_encoded``.
 """
 
 import subprocess
@@ -110,8 +111,9 @@ def test_feed_engages_by_the_plan_alone(monkeypatch):
     """Every windowed 3D plan of the suite's star tables whose grid width
     and staged plane are multiples of 8 cells, full grid and shard slab;
     not a width of 4 modulo 8 (a bf16 row would not be whole 16 bytes) nor
-    one with no 16-byte access, nor a ring 3D table or a 2D plan, whose
-    texts stay byte for byte what they are with the feed off."""
+    one with no 16-byte access, nor a ring 3D table, whose texts stay byte
+    for byte what they are with the feed off; nor a 2D plan, whose text
+    does not depend on the 3D feed."""
     for name in ("3d7pt_star", "3d13pt_star"):
         for dims in ((512, 512, 512), (776, 2048, 2048), (20, 40, 136)):
             g = codegen.geometry(plan_for(name, dims), dims)
@@ -142,7 +144,8 @@ def test_feed_engages_by_the_plan_alone(monkeypatch):
             m.setattr(codegen, "AHEAD_3D", 0)
             off = codegen.cuda_source(plan, spec.dims, "float32", False)
         assert codegen.cuda_source(plan, spec.dims, "float32", False) == off
-        assert "tma_" not in off
+        # a 2D plan's rows come by the 2D feeds (test_torch_tma2d.py)
+        assert "tma_copy_3d" not in off and "tma_encode_3d" not in off
 
 
 def test_slots_fit_the_ctas_registers_admit():
