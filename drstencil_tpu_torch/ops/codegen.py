@@ -1229,6 +1229,12 @@ def _plane_name(d0: int, prefix: str = "b") -> str:
     return f"{prefix}_{_signed(d0)}"
 
 
+def _edge_lanes(m: int) -> Tuple[int, int]:
+    """``[lo, hi)``: the lanes of a warp whose neighbour ``m`` quads away
+    lies in another warp (``_own_row_3d``'s ``far`` condition)."""
+    return (0, -m) if m < 0 else (32 - m, 32)
+
+
 def _own_row_3d(rid: str, base: str, d0: int, dxs, own: str, beside):
     """Loads of a windowed 3D thread's own row at axis-0 offset ``d0``: its
     quad ``own`` from its window, and each cell ``j`` beside it from the
@@ -1248,7 +1254,8 @@ def _own_row_3d(rid: str, base: str, d0: int, dxs, own: str, beside):
         m = j // QUAD
         name = f"x_{_signed(d0)}_{_signed(j)}"
         beside.append((name, d0, "xyzw"[j - QUAD * m], m))
-        far = f"lane < {-m}" if m < 0 else f"lane >= {32 - m}"
+        lo, hi = _edge_lanes(m)
+        far = f"lane < {hi}" if m < 0 else f"lane >= {lo}"
         tag = f"{rid}_{_signed(j)}"
         lines.append(f"  const float s{tag} = {far} ? {base}[at + ({j})] : "
                      f"{name};")
@@ -1264,14 +1271,15 @@ def _taps_text(offsets, coeffs, g: Geometry, own_base: int, acc: str = "a",
     own_base]`` (in 3D on the thread's own row, whose cells beside the quad
     come from its neighbours' windows: ``_own_row_3d``, which appends them
     to ``beside``).  Returns (lines, axis-0 offsets of the planes read from
-    shared memory)."""
+    shared memory, the shared loads every thread runs: ``_row_loads``'
+    lines)."""
     rows = []       # taps grouped by everything but dx, in table order
     for off, c in zip(offsets.tolist(), coeffs.tolist()):
         key = tuple(off[:-1])
         if not rows or rows[-1][0] != key:
             rows.append((key, []))
         rows[-1][1].append((off[-1], c, tuple(off)))
-    body, planes = [], set()
+    body, planes, loads = [], set(), 0
     for rid, (key, taps) in enumerate(rows):
         off = key[1] * g.ex if len(key) == 2 else 0
         own = f"{window}[{key[0] + own_base}]" if g.window else None
@@ -1282,6 +1290,7 @@ def _taps_text(offsets, coeffs, g: Geometry, own_base: int, acc: str = "a",
         else:
             lines, expr = _row_loads(f"{tag}{rid}", _plane_name(key[0]),
                                      off, dxs, None if g.window3d else own)
+            loads += len(lines)
         if lines:
             planes.add(key[0])
         body += lines
@@ -1290,7 +1299,20 @@ def _taps_text(offsets, coeffs, g: Geometry, own_base: int, acc: str = "a",
             body.append("  " + " ".join(
                 f"{acc}{j} = fmaf({lit}, {expr[j + dx]}, {acc}{j});"
                 for j in range(QUAD)) + f"  // {full}")
-    return body, planes
+    return body, planes, loads
+
+
+@dataclass(frozen=True)
+class QuadLoads:
+    """The shared-memory loads one quad step of a level writes for its taps
+    (the feed's staging is not counted): ``each``, the loads every thread
+    that computes a quad runs, and ``lanes``, one ``[lo, hi)`` range of
+    warp lanes for each load that only those lanes run (a windowed 3D
+    thread's cell beside its quad where the lane beside it is in another
+    warp, ``_own_row_3d``)."""
+
+    each: int
+    lanes: Tuple[Tuple[int, int], ...] = ()
 
 
 def _quad_fn(name: str, comment, windows, planes, body, scalars=()):
@@ -1310,10 +1332,12 @@ def _level_quad(plan, g: Geometry):
     """Text of ``level_quad``: one level at the quad ``at`` — the table in
     sorted order, one ``fmaf`` per tap and output cell.  Returns (lines,
     axis-0 offsets of the planes it reads from shared memory, the shuffled
-    cells it takes as ``(name, d0, component, lanes away)``)."""
+    cells it takes as ``(name, d0, component, lanes away)``, its
+    :class:`QuadLoads`)."""
     beside = []
-    body, planes = _taps_text(plan.offsets, plan.coeffs, g,
-                              g.window_len - 1 - g.reach, beside=beside)
+    body, planes, loads = _taps_text(plan.offsets, plan.coeffs, g,
+                                     g.window_len - 1 - g.reach,
+                                     beside=beside)
     planes = sorted(planes)
     o = ["// One level at the quad `at` of a plane: the tap table in sorted "
          "order, one fmaf",
@@ -1331,7 +1355,9 @@ def _level_quad(plan, g: Geometry):
                  [b[0] for b in beside])
     o.append("  return make_float4(a0, a1, a2, a3);")
     o.append("}")
-    return o, planes, beside
+    # each cell that _own_row_3d shuffles in is one load at the warp's ends
+    return o, planes, beside, QuadLoads(
+        loads, tuple(_edge_lanes(b[3]) for b in beside))
 
 
 def _beside_cells(plan):
@@ -1375,7 +1401,8 @@ def _partial_row(plan):
     ``dy`` of the table then adds its taps, in sorted order, to ``o_<dy>``,
     the partial sum of output row ``j - dy``.  Rows arrive in increasing
     ``j``, so every output cell's ``fmaf`` chain runs over the table in its
-    sorted order from 0, as ``level_quad``'s does."""
+    sorted order from 0, as ``level_quad``'s does.  Returns (lines, its
+    :class:`QuadLoads`: one load a line of ``_beside_loads``)."""
     lines, expr = _beside_loads("b", _beside_cells(plan))
     expr.update({j: "own." + "xyzw"[j] for j in range(QUAD)})
     body = []
@@ -1395,7 +1422,7 @@ def _partial_row(plan):
             "the partial sum",
             "// of output row j - dy",
             "__device__ __forceinline__ void level_row(" + ", ".join(args)
-            + ") {"] + lines + body + ["}"]
+            + ") {"] + lines + body + ["}"], QuadLoads(len(lines))
 
 
 def _factor_quads(plan, g: Geometry):
@@ -1420,13 +1447,14 @@ def _factor_quads(plan, g: Geometry):
          "// level below's rows at axis-0 offsets -1, 0, ... in shared "
          "memory."]
     planes = {}
-    body, p1 = _taps_text(*plan.v1, g, newest - g.reach)
+    body, p1, _ = _taps_text(*plan.v1, g, newest - g.reach)
     planes[1] = sorted(p1)
     o += _quad_fn("level_v1", ["// odd levels: V1"], ["w"], planes[1], body)
     o += ["  return make_float4(a0, a1, a2, a3);", "}"]
-    body, p2 = _taps_text(*plan.v2, g, newest - g.reach)
-    rbody, _ = _taps_text(r_offsets, r_coeffs, g, newest - 1 - 2 * g.reach,
-                          acc="c", window="w2", tag="r")
+    body, p2, _ = _taps_text(*plan.v2, g, newest - g.reach)
+    rbody, _, _ = _taps_text(r_offsets, r_coeffs, g,
+                             newest - 1 - 2 * g.reach, acc="c", window="w2",
+                             tag="r")
     planes[0] = sorted(p2)
     o += _quad_fn("level_v2r", ["// even levels: V2, then R's chain, then "
                                 "one add"], ["w", "w2"], planes[0], body)
@@ -1434,6 +1462,33 @@ def _factor_quads(plan, g: Geometry):
     o += rbody
     o += ["  return make_float4(a0 + c0, a1 + c1, a2 + c2, a3 + c3);", "}"]
     return o, planes
+
+
+def level_loads(plan, g: Geometry) -> Tuple[int, ...]:
+    """Shared-memory loads for taps that one CTA's threads run in a step in
+    which a level runs its quad step, level by level, from the quad step the
+    text writes (:class:`QuadLoads` of ``level_quad``, or of ``level_row``
+    in the partial-sum text): ``each`` for every quad of the level's region
+    (``Geometry.level_region``), and each load of ``lanes`` for the threads
+    of the region whose lane lies in its range.  Factor mode's loads are
+    not counted: zeros."""
+    if g.factor:
+        return (0,) * g.levels
+    loads = _partial_row(plan)[1] if g.partial else _level_quad(plan, g)[3]
+    qx = g.ex // QUAD
+    out = []
+    for t in range(1, g.levels + 1):
+        y0, rows, q0, quads = g.level_region(t)
+        n = loads.each * rows * quads
+        if loads.lanes:
+            # a windowed 3D thread i owns quad i % qx of the row i // qx
+            owners = [i % 32 for i in range(g.threads)
+                      if y0 <= i // qx < y0 + rows
+                      and q0 <= i % qx < q0 + quads]
+            n += sum(lo <= lane < hi for lane in owners
+                     for lo, hi in loads.lanes)
+        out.append(n)
+    return tuple(out)
 
 
 def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
@@ -1545,9 +1600,9 @@ def cuda_source(plan, dims, dtype: str, shard: bool, name: str = "plan",
                 return "level_v1", [f"w[{t - 1}]"], by_parity[1]
             return "level_v2r", [f"w[{t - 1}]", f"w[{t - 2}]"], by_parity[0]
     elif g.partial:
-        quad_text, level_call = _partial_row(plan), None
+        quad_text, level_call = _partial_row(plan)[0], None
     else:
-        quad_text, planes, beside = _level_quad(plan, g)
+        quad_text, planes, beside, _ = _level_quad(plan, g)
 
         def level_call(t):
             return ("level_quad", [f"w[{t - 1}]"] if g.window else [],

@@ -42,9 +42,10 @@ flags; a later process finds the library on disk; about 6 s per plan).
 started together; callers that know their plans ahead use it.  A failed
 build raises with the compiler's log; nothing falls back.
 :func:`plan_counters` counts the plan cache's disk hits, builds and seconds,
-the plans it made or found that keep register windows, feed their source
-planes by TMA, accumulate partial sums or apply block-fused levels, and the
-flops and cell-steps of the levels kernels' launches.
+the plans it made or found that keep register windows (or, in 3D, only
+rings), feed their source planes by TMA, accumulate partial sums or apply
+block-fused levels, and the flops, cell-steps and shared-memory loads of
+the levels kernels' launches.
 
 Each streaming kernel runs on float32 and on bfloat16 state: the bf16
 build loads as fp32, computes every level in fp32 and rounds once at the
@@ -340,37 +341,49 @@ def build():
 # -- the per-plan kernels -------------------------------------------------------
 
 class LaunchWork:
-    """The arithmetic of one launch of a levels or factor plan, from its
+    """The work of one launch of a levels or factor plan, from its
     ``codegen.Geometry``: the flops of every cell its levels compute,
-    trapezoid recompute included, and the cell-steps it stores (the
-    counters ``flops`` and ``cell_steps``).  In a segment of ``n0`` stored
-    rows (planes) of axis 0, level ``t`` computes the rows ``[t * reach,
-    n0 + 2 * frame - t * reach)`` of the segment's window (a factor plan's
-    V2 levels below the last one row more, ``Geometry.tail``), each row
-    the plane cells of ``Geometry.level_region(t)``, in every column of the
-    grid; a cell costs its level's ``level_flops``.  ``whole`` is the
-    counts of a launch that stores the whole interior."""
+    trapezoid recompute included, the cell-steps it stores and the
+    shared-memory loads its levels run for their taps (the counters
+    ``flops``, ``cell_steps`` and ``smem_loads``).  In a segment of ``n0``
+    stored rows (planes) of axis 0, level ``t`` computes the rows ``[t *
+    reach, n0 + 2 * frame - t * reach)`` of the segment's window (a factor
+    plan's V2 levels below the last one row more, ``Geometry.tail``), each
+    row the plane cells of ``Geometry.level_region(t)``, in every column of
+    the grid; a cell costs its level's ``level_flops``.  Its quad step runs
+    ``codegen.level_loads`` a step on those rows, or in the partial-sum
+    text on every row of level ``t - 1`` as it arrives (``2 * reach`` rows
+    more); factor mode's loads are not counted.  ``whole`` is the counts
+    of a launch that stores the whole interior."""
 
     def __init__(self, taps, g: codegen.Geometry):
         H, r, L = g.frame, g.reach, g.levels
         self._segment = g.tile[0]
         self._per_row = self._per_segment = 0
-        for t, flops in enumerate(taps.level_flops(), 1):
+        self._loads_row = self._loads_segment = 0
+        for t, (flops, loads) in enumerate(
+                zip(taps.level_flops(), codegen.level_loads(taps, g)), 1):
             _, rows, _, quads = g.level_region(t)
             cells = flops * g.n_columns * rows * codegen.QUAD * quads
             past = g.tail if g.factor and t % 2 == 0 and t < L else 0
             self._per_row += cells
             self._per_segment += cells * (2 * H - 2 * t * r + past)
+            loads *= g.n_columns
+            self._loads_row += loads
+            self._loads_segment += loads * (2 * H - 2 * t * r
+                                            + (2 * r if g.partial else 0))
         self._stored = taps.timesteps * math.prod(
             d - 2 * H for d in g.dims[1:])
         self.whole = self.counts(g.interior)
 
-    def counts(self, rows: int) -> Tuple[int, int]:
-        """``(flops, cell_steps)`` of a launch that stores ``rows`` rows
-        (planes) of axis 0, cut into segments of ``Geometry.tile[0]``."""
+    def counts(self, rows: int) -> Tuple[int, int, int]:
+        """``(flops, cell_steps, smem_loads)`` of a launch that stores
+        ``rows`` rows (planes) of axis 0, cut into segments of
+        ``Geometry.tile[0]``."""
         segments = -(-rows // self._segment)
         return (rows * self._per_row + segments * self._per_segment,
-                rows * self._stored)
+                rows * self._stored,
+                rows * self._loads_row + segments * self._loads_segment)
 
 
 class PlanKernel:
@@ -427,6 +440,8 @@ class PlanKernel:
                         self.build_log = f.read()
             if getattr(self.geometry, "window", False):
                 _COUNTERS.add(**{f"windowed_{self.geometry.ndim}d": 1})
+            elif getattr(self.geometry, "ndim", 2) == 3:
+                _COUNTERS.add(ring_3d=1)
             if getattr(self.geometry, "partial", False):
                 _COUNTERS.add(partial_2d=1)
             if self.tma:
@@ -511,20 +526,23 @@ class _PlanCounters:
             self._counts = {"disk_hits": 0, "builds": 0, "plan_s": 0.0,
                             "windowed_2d": 0, "windowed_3d": 0, "tma_2d": 0,
                             "tma_3d": 0, "partial_2d": 0, "block_fused": 0,
-                            "flops": 0, "cell_steps": 0}
+                            "ring_3d": 0, "flops": 0, "cell_steps": 0,
+                            "smem_loads": 0}
 
     def add(self, **by) -> None:
         with self._lock:
             for key, value in by.items():
                 self._counts[key] += value
 
-    def add_launch(self, flops: int, cell_steps: int) -> None:
-        """Add one launch's :class:`LaunchWork`: two sums under the lock,
+    def add_launch(self, flops: int, cell_steps: int,
+                   smem_loads: int) -> None:
+        """Add one launch's :class:`LaunchWork`: three sums under the lock,
         without :meth:`add`'s keyword arguments, since it runs on every
         launch."""
         with self._lock:
             self._counts["flops"] += flops
             self._counts["cell_steps"] += cell_steps
+            self._counts["smem_loads"] += smem_loads
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -560,7 +578,8 @@ def plan_counters() -> dict:
     :func:`build_plans` (text, hash, ``nvcc``, ``dlopen``), each second
     counted once; ``windowed_2d`` and ``windowed_3d``, the plans of those
     builds and disk hits whose geometry keeps register windows
-    (``codegen.Geometry.window``); ``tma_2d`` and ``tma_3d``, those whose
+    (``codegen.Geometry.window``); ``ring_3d``, those that are 3D and keep
+    none (the ring text); ``tma_2d`` and ``tma_3d``, those whose
     text feeds its source rows or planes by TMA (``codegen.Geometry.tma``);
     ``partial_2d``, those
     whose text accumulates partial sums (``codegen.Geometry.partial``);
@@ -568,8 +587,11 @@ def plan_counters() -> dict:
     (``LevelTaps.block_fused``: ``KernelConfig.block > 1``).  Summed over
     the levels kernels' launches on CUDA tensors (never the plain versions'
     calls): ``flops``, the arithmetic of the cells their levels computed,
-    trapezoid recompute included, and ``cell_steps``, the cells they stored
-    times the timesteps they advanced (:class:`LaunchWork`)."""
+    trapezoid recompute included; ``cell_steps``, the cells they stored
+    times the timesteps they advanced; and ``smem_loads``, the shared-memory
+    load instructions their levels ran for their taps, counted per thread
+    (``codegen.level_loads``: the feed's staging, factor plans and
+    ``tile2d_fused`` add none) (:class:`LaunchWork`)."""
     return _COUNTERS.snapshot()
 
 

@@ -150,7 +150,8 @@ def test_counters_start_at_zero_and_are_a_copy(counters):
     assert got == {"disk_hits": 0, "builds": 0, "plan_s": 0.0,
                    "windowed_2d": 0, "windowed_3d": 0, "tma_2d": 0,
                    "tma_3d": 0, "partial_2d": 0, "block_fused": 0,
-                   "flops": 0, "cell_steps": 0}
+                   "ring_3d": 0, "flops": 0, "cell_steps": 0,
+                   "smem_loads": 0}
     got["builds"] = 9
     assert kernels.plan_counters()["builds"] == 0
 
@@ -168,8 +169,9 @@ def test_plan_of_alone_counts_nothing(counters):
                                        "plan_s": 0.0, "windowed_2d": 0,
                                        "windowed_3d": 0, "tma_2d": 0,
                                        "tma_3d": 0, "partial_2d": 0,
-                                       "block_fused": 0, "flops": 0,
-                                       "cell_steps": 0}
+                                       "block_fused": 0, "ring_3d": 0,
+                                       "flops": 0, "cell_steps": 0,
+                                       "smem_loads": 0}
     assert not counters
 
 
